@@ -1,0 +1,89 @@
+"""High-level API: build/load index, map queries, write PAF.
+
+Equivalent of the reference `mashmap` main (src/map/mash_map.cpp:22-57):
+index construction then query mapping. Counterpart of
+``mashmap_tpu/api.py`` for one process on one torch device (CUDA unless
+the caller passes ``device="cpu"``).
+"""
+
+from __future__ import annotations
+
+import logging
+import sys
+import time
+from typing import Optional
+
+from .params import Parameters
+from .index.builder import ReferenceIndex, build_index
+from .io import for_each_seq_in_file
+from .map.engine import Mapper
+from .utils import resolve_device
+
+logger = logging.getLogger("mashmap_tpu_torch")
+
+
+def build_or_load_index(params: Parameters, device=None) -> ReferenceIndex:
+    if params.load_index_filename:
+        t0 = time.time()
+        idx = ReferenceIndex.load(params.load_index_filename)
+        logger.info("index loaded in %.2fs", time.time() - t0)
+        return idx
+
+    def contigs():
+        allowed = None
+        if params.target_list:
+            with open(params.target_list) as fh:
+                allowed = {line.strip() for line in fh if line.strip()}
+        for fname in params.ref_sequences:
+            yield from for_each_seq_in_file(
+                fname, allowed, params.target_prefix)
+
+    t0 = time.time()
+    idx = build_index(
+        contigs(), params.kmer_size, params.seg_length,
+        params.sketch_size, params.kmer_pct_threshold,
+        threads=params.threads, device=device)
+    logger.info("reference index built in %.2fs", time.time() - t0)
+    if params.save_index_filename:
+        idx.save(params.save_index_filename)
+    return idx
+
+
+def map_files(params: Parameters,
+              index: Optional[ReferenceIndex] = None,
+              device=None) -> ReferenceIndex:
+    """Run the full pipeline; returns the index (reusable)."""
+    device = resolve_device(device)
+    if (params.num_processes or 1) > 1:
+        raise NotImplementedError(
+            "multi-process mapping is not ported yet; run one process")
+    params.finalize()
+    if index is None:
+        index = build_or_load_index(params, device)
+    if params.load_index_filename and (
+            index.kmer_size != params.kmer_size
+            or index.window_size != params.seg_length
+            or index.sketch_size != params.sketch_size):
+        # the npz stores the build parameters; adopt them instead of
+        # silently mixing sketch domains
+        logger.warning(
+            "loaded index was built with k=%d w=%d s=%d; overriding "
+            "the CLI-derived k=%d w=%d s=%d",
+            index.kmer_size, index.window_size, index.sketch_size,
+            params.kmer_size, params.seg_length, params.sketch_size)
+        if params.block_length == params.seg_length:
+            params.block_length = index.window_size
+        if params.chain_gap == params.seg_length:
+            params.chain_gap = index.window_size
+        params.kmer_size = index.kmer_size
+        params.seg_length = index.window_size
+        params.sketch_size = index.sketch_size
+    mapper = Mapper(params, index, device)
+    t0 = time.time()
+    if params.out_file_name == "-":
+        mapper.run(params.query_sequences, sys.stdout)
+    else:
+        with open(params.out_file_name, "w") as out:
+            mapper.run(params.query_sequences, out)
+    logger.info("mapping done in %.2fs", time.time() - t0)
+    return index

@@ -1,0 +1,924 @@
+"""Mapping engine orchestration.
+
+Counterpart of ``mashmap_tpu/map/engine.py`` on one torch device;
+equivalent of ``skch::Map`` (reference: computeMap.hpp:53-1818):
+
+- query sequences are cut into segLength fragments that form a flat
+  batch axis; each batch runs ``l1_step`` and then ``l2_step`` on the
+  device (kernels/mapdev.py);
+- fragments or candidates that overflow the device caps take the host
+  routes (map/l1.py, map/l2.py), which give the same rows;
+- results are regrouped per query (a query's fragments may span
+  batches), chained/merged/filtered on the host, and written in input
+  order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import IO, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import stats
+from ..params import FIXED, Parameters, FILTER_MAP, FILTER_ONETOONE
+from ..index.builder import ReferenceIndex
+from ..kernels import kmers
+from ..kernels.murmur import flip
+from ..kernels.sketch import sketch_fragments, complexity_rescale
+from ..utils import resolve_device
+from . import l1 as l1_mod
+from . import l2 as l2_mod
+from . import filters, merge, output
+from .results import MappingResult
+
+logger = logging.getLogger("mashmap_tpu_torch.map")
+
+# L2 work buckets by interval-slice length; W*T per call stays constant
+T_BUCKETS = (512, 1024, 2048, 8192)
+
+
+def _batch_pad_rows(B: int, batch_fragments: int) -> int:
+    """Padded row count for a B-fragment batch: {2^k, 1.5*2^k} grid,
+    quarter-width tail floor, full-batch floor."""
+    Bp = 1 << max(3, (B - 1).bit_length())
+    if B <= (Bp * 3) // 4:
+        Bp = (Bp * 3) // 4
+    b_small = min(batch_fragments, max(64, batch_fragments // 4))
+    if B <= b_small:
+        return b_small
+    return max(batch_fragments, Bp)
+
+
+@dataclasses.dataclass
+class _Fragment:
+    query_idx: int          # position in the batch's query list
+    q_start: int            # fragment offset within the query
+    q_len: int              # fragment length (== Q.len)
+    window_len: int         # max(0, q_len - seg_length)
+    q: object = None        # owning _Query (pipelined path)
+    ord: int = 0            # ordinal within the query (pipelined path)
+
+
+@dataclasses.dataclass
+class _Query:
+    name: str
+    seq: str
+    counter: int            # global sequence counter (file order)
+    # pipelined-path state: per-query results accumulate here until
+    # every fragment has been delivered
+    u8: object = None       # sanitized bytes (np.uint8)
+    allowed: object = None  # admissible-reference mask (or None)
+    qg: int = -1            # reference prefix group
+    n_frags: int = 0
+    done: int = 0
+    rows: object = None     # per-ordinal [(fragment, rows)]
+
+
+@dataclasses.dataclass
+class _Batch:
+    """One device batch of fragments."""
+    frags: list
+    mat: object = None          # (B, L) uint8 host matrix
+    out: object = None          # l1_step packed meta (device)
+    qh_dev: object = None       # (B, s) sketch codes (device)
+    qs_dev: object = None
+    o: object = None            # unpacked l1 meta (host)
+    cx: object = None
+    host_frags: object = None   # set of batch-frag indices
+    host_l2_set: object = None  # set of (i, j)
+    pending: object = None      # [(chunk, device run buffer)]
+    loci_by: object = None
+    qh_host: object = None
+
+
+class Mapper:
+    """L1+L2 mapping pipeline against a built ReferenceIndex."""
+
+    def __init__(self, params: Parameters, index: ReferenceIndex,
+                 device=None):
+        self.p = params
+        self.idx = index
+        self.device = resolve_device(device)
+        self._mi_key = None
+        self._dev = None
+        self._cfg = None
+        self.table_scale = max(
+            1.0, params.sketch_size / FIXED.ss_table_max)
+        if params.stage1_topANI_filter:
+            self.cutoff_table = stats.sketch_cutoffs(
+                params.sketch_size, params.kmer_size,
+                params.ANIDiff, params.ANIDiffConf, FIXED.ss_table_max)
+        else:
+            self.cutoff_table = None
+        self.ref_groups = self._set_ref_groups() \
+            if params.skip_prefix else np.zeros(index.n_contigs, np.int64)
+        self._min_hits_cache: dict[int, int] = {}
+        self._ub_cache: dict[tuple, float] = {}
+        self._name_arr = np.array(index.names)
+        # one-to-one bookkeeping
+        self.qmetadata: list[tuple[str, int]] = []
+        self._buffered: List[MappingResult] = []
+        # counters (reference prints these at the end, computeMap.hpp:409-414)
+        self.total_reads_picked = 0
+        self.total_reads_mapped = 0
+        self.total_seq_counter = 0
+        self.total_bp = 0
+        # which device/host routes ran
+        self.path_stats = {"host_frags": 0, "host_l2": 0,
+                           "l2_buckets": {}}
+
+    @property
+    def mi_key(self) -> np.ndarray:
+        """Packed (seqid << 32 | wpos) interval sort keys, host-side
+        (host L2 route only)."""
+        if self._mi_key is None:
+            self._mi_key = l2_mod.pack_mi_key(
+                self.idx.mi_seqid, self.idx.mi_wpos)
+        return self._mi_key
+
+    # --- prefix grouping (computeMap.hpp:144-177) ---
+    @staticmethod
+    def _prefix(name: str, delim: str) -> str:
+        i = name.rfind(delim)
+        return name if i < 0 else name[:i]
+
+    def _set_ref_groups(self) -> np.ndarray:
+        groups = np.zeros(self.idx.n_contigs, np.int64)
+        group = 0
+        i = 0
+        while i < self.idx.n_contigs:
+            pref = self._prefix(self.idx.names[i], self.p.prefix_delim)
+            j = i
+            while j < self.idx.n_contigs and \
+                    self._prefix(self.idx.names[j],
+                                 self.p.prefix_delim) == pref:
+                groups[j] = group
+                j += 1
+            group += 1
+            i = j
+        return groups
+
+    def _get_ref_group(self, seq_name: str) -> int:
+        if not hasattr(self, "_prefix_to_group"):
+            self._prefix_to_group = {}
+            for i in range(self.idx.n_contigs):
+                pref = self._prefix(self.idx.names[i],
+                                    self.p.prefix_delim)
+                self._prefix_to_group.setdefault(
+                    pref, int(self.ref_groups[i]))
+        return self._prefix_to_group.get(
+            self._prefix(seq_name, self.p.prefix_delim), -1)
+
+    # --- cached statistics ---
+    def _minimum_hits(self, s_q: int) -> int:
+        v = self._min_hits_cache.get(s_q)
+        if v is None:
+            v = stats.estimate_minimum_hits_relaxed(
+                s_q, self.p.kmer_size, self.p.percentage_identity,
+                FIXED.confidence_interval)
+            self._min_hits_cache[s_q] = v
+        return v
+
+    def _identity_ub(self, shared: int, s_q: int) -> float:
+        key = (shared, s_q)
+        v = self._ub_cache.get(key)
+        if v is None:
+            mash_dist = stats.j2md(
+                float(np.float32(1.0) * np.float32(shared)
+                      / np.float32(s_q)), self.p.kmer_size)
+            v = 1.0 - stats.md_lower_bound(
+                mash_dist, s_q, self.p.kmer_size, FIXED.confidence_interval)
+            self._ub_cache[key] = v
+        return v
+
+    # ------------------------------------------------------------------
+    def _fragment_query(self, qlen: int) -> List[Tuple[int, int]]:
+        """(q_start, q_len) per fragment (computeMap.hpp:587-671)."""
+        p = self.p
+        if not p.split or qlen <= p.seg_length:
+            return [(0, qlen)]
+        out = []
+        n = qlen // p.seg_length
+        for i in range(n):
+            out.append((i * p.seg_length, p.seg_length))
+        if n >= 1 and qlen % p.seg_length != 0:
+            out.append((qlen - p.seg_length, p.seg_length))
+        return out
+
+    def _sketch_batch(self, seqs: List[np.ndarray]):
+        """Device-sketch fragments, bucketed by padded length."""
+        p = self.p
+        n = len(seqs)
+        res_h = [None] * n
+        res_s = [None] * n
+        res_cnt = [0] * n
+        res_cx = [0.0] * n
+        buckets: dict[int, list[int]] = {}
+        for i, sq in enumerate(seqs):
+            pl = max(p.seg_length,
+                     -(-len(sq) // p.seg_length) * p.seg_length)
+            buckets.setdefault(pl, []).append(i)
+        for pl, idxs in buckets.items():
+            mat = np.full((len(idxs), pl), ord("N"), np.uint8)
+            for r, i in enumerate(idxs):
+                mat[r, : len(seqs[i])] = seqs[i]
+            h, st, cnt, cx = sketch_fragments(
+                torch.from_numpy(mat).to(self.device), p.kmer_size,
+                p.sketch_size)
+            h = h.cpu().numpy().view(np.uint64)
+            st = st.cpu().numpy()
+            cnt = cnt.cpu().numpy()
+            cx = cx.cpu().numpy()
+            for r, i in enumerate(idxs):
+                res_h[i] = h[r]
+                res_s[i] = st[r]
+                res_cnt[i] = int(cnt[r])
+                res_cx[i] = float(complexity_rescale(
+                    cx[r], pl, np.int64(len(seqs[i])), p.kmer_size))
+        return res_h, res_s, res_cnt, res_cx
+
+    # ------------------------------------------------------------------
+    def _map_fragment(self, q: _Query, frag: _Fragment,
+                      q_hashes: np.ndarray, q_strand: np.ndarray,
+                      count: int, complexity: float,
+                      allowed: Optional[np.ndarray],
+                      q_ref_group: int) -> List[MappingResult]:
+        """mapSingleQueryFrag equivalent on the host
+        (computeMap.hpp:755-815)."""
+        p = self.p
+        if count == 0 or complexity < p.kmer_complexity_threshold:
+            return []
+        hashes = q_hashes[:count]
+        strands = q_strand[:count].astype(np.int64)
+        # frequent-seed filtering (computeMap.hpp:833-839)
+        freq = self.idx.is_freq_seed(hashes)
+        if freq.any():
+            hashes = hashes[~freq]
+            strands = strands[~freq]
+        s_q = len(hashes)
+        if s_q == 0:
+            return []
+
+        minimum_hits = self._minimum_hits(s_q)
+        seqid, wpos, wend, hrep = l1_mod.gather_postings(self.idx, hashes)
+        if allowed is not None and len(seqid):
+            keep = allowed[seqid]
+            seqid, wpos, wend, hrep = (seqid[keep], wpos[keep],
+                                       wend[keep], hrep[keep])
+        if len(seqid) == 0:
+            return []
+
+        # group interval points by reference prefix group
+        # (doL1Mapping, computeMap.hpp:1146-1165)
+        if p.skip_prefix:
+            gsel = self.ref_groups[seqid]
+            group_vals = np.unique(gsel)
+        else:
+            gsel = None
+            group_vals = np.array([0])
+
+        wl = frag.window_len
+        rows: List[MappingResult] = []
+        for gv in group_vals:
+            if gsel is None:
+                sq, wp, we, hr = seqid, wpos, wend, hrep
+            else:
+                sel = gsel == gv
+                sq, wp, we, hr = (seqid[sel], wpos[sel], wend[sel],
+                                  hrep[sel])
+            if wl == 0:
+                cands = l1_mod.l1_candidates(
+                    sq, wp, we, minimum_hits, s_q, p.seg_length,
+                    p.stage1_topANI_filter, self.cutoff_table,
+                    self.table_scale, p.stage2_full_scan)
+            else:
+                cands = l1_mod.l1_candidates_windowed(
+                    sq, wp, we, hr, wl, minimum_hits, s_q,
+                    p.seg_length, p.stage1_topANI_filter,
+                    self.cutoff_table, self.table_scale,
+                    p.stage2_full_scan)
+            rows.extend(self._do_l2(q, frag, hashes, strands, s_q,
+                                    complexity, cands))
+        rows.sort(key=lambda m: (m.ref_seq_id, m.ref_start))
+        return rows
+
+    def _do_l2(self, q: _Query, frag: _Fragment, hashes, strands, s_q,
+               complexity, cands,
+               loci_fn=None) -> List[MappingResult]:
+        """doL2Mapping equivalent (computeMap.hpp:1181-1267).
+
+        loci_fn(candidate) -> List[L2Locus] lets the device pipeline
+        supply precomputed trajectories.
+        """
+        p = self.p
+        k = p.kmer_size
+        if not cands:
+            return []
+        if p.stage1_topANI_filter:
+            cands = sorted(cands, key=lambda c: -c.intersection)
+        best_jacc_num = 0.0
+        rows: List[MappingResult] = []
+        f32 = np.float32
+        for c in cands:
+            if p.stage1_topANI_filter:
+                # float32 arithmetic mirrors the reference's `float` path
+                # (computeMap.hpp:1196-1201)
+                j_best = float(f32(best_jacc_num / s_q))
+                cutoff_ani = max(0.0, float(
+                    f32(f32(1.0) - f32(stats.j2md(j_best, k))
+                        - f32(p.ANIDiff))))
+                cutoff_j = float(f32(stats.md2j(1.0 - cutoff_ani, k)))
+                if float(c.intersection) / s_q < cutoff_j:
+                    break
+            if loci_fn is not None:
+                loci = loci_fn(c)
+            else:
+                loci = l2_mod.l2_mapped_regions(
+                    self.idx, self.mi_key, hashes, strands,
+                    c.seq_id, c.range_start, c.range_end,
+                    p.seg_length, frag.window_len)
+            for loc in loci:
+                mash_dist = stats.j2md(
+                    float(f32(1.0) * f32(loc.shared_sketch_size)
+                          / f32(s_q)), k)
+                nuc_id = float(f32(1) - f32(mash_dist))
+                nuc_id_ub = self._identity_ub(loc.shared_sketch_size, s_q)
+                if (p.keep_low_pct_id
+                        and nuc_id_ub >= p.percentage_identity) \
+                        or nuc_id >= p.percentage_identity:
+                    best_jacc_num = max(best_jacc_num,
+                                        float(loc.shared_sketch_size))
+                    m = MappingResult(
+                        query_len=frag.q_len,
+                        ref_start=loc.mean_optimal_pos,
+                        ref_end=loc.mean_optimal_pos + frag.q_len,
+                        query_start=0,
+                        query_end=frag.q_len,
+                        ref_seq_id=loc.seq_id,
+                        query_seq_id=q.counter,
+                        nuc_identity=nuc_id,
+                        nuc_identity_ub=nuc_id_ub,
+                        sketch_size=s_q,
+                        conserved_sketches=loc.shared_sketch_size,
+                        strand=loc.strand,
+                        kmer_complexity=complexity,
+                    )
+                    m.block_length = max(m.ref_end - m.ref_start,
+                                         m.query_end - m.query_start)
+                    m.approx_matches = output.cpp_round(
+                        m.nuc_identity * m.block_length / 100.0)
+                    rows.append(m)
+        return rows
+
+    # ------------------------------------------------------------------
+    def _allowed_mask(self, q: _Query) -> Optional[np.ndarray]:
+        """Per-query admissible reference sequences
+        (getSeedIntervalPoints, computeMap.hpp:887-894)."""
+        p = self.p
+        if not (p.skip_self or p.skip_prefix or p.lower_triangular):
+            return None
+        allowed = np.ones(self.idx.n_contigs, bool)
+        if p.skip_self:
+            allowed &= self._name_arr != q.name
+        if p.lower_triangular:
+            allowed &= q.counter > np.arange(self.idx.n_contigs)
+        if p.skip_prefix:
+            qg = self._get_ref_group(q.name)
+            allowed &= self.ref_groups != qg
+        return allowed
+
+    def _fragments_of(self, queries: List[_Query]) -> List[_Fragment]:
+        p = self.p
+        frags: List[_Fragment] = []
+        for qi, q in enumerate(queries):
+            for (qs, qlen) in self._fragment_query(len(q.seq)):
+                frags.append(_Fragment(
+                    qi, qs, qlen, max(0, qlen - p.seg_length)))
+        return frags
+
+    def map_queries(self, queries: List[_Query]) -> List[
+            Tuple[_Query, List[MappingResult]]]:
+        """Map a batch of query sequences."""
+        p = self.p
+        frags = self._fragments_of(queries)
+        all_wl0 = all(fr.window_len == 0 for fr in frags)
+        if p.use_device_pipeline and all_wl0 and len(frags):
+            rows_by_frag = self._run_fragments_device(queries, frags)
+        else:
+            rows_by_frag = self._run_fragments_host(queries, frags)
+        return self._assemble(queries, frags, rows_by_frag)
+
+    def _run_fragments_host(self, queries, frags):
+        p = self.p
+        sanitized = [kmers.sanitize(q.seq.encode("ascii"))
+                     for q in queries]
+        frag_seqs = [
+            sanitized[fr.query_idx][fr.q_start:fr.q_start + fr.q_len]
+            for fr in frags]
+        h, st, cnt, cx = self._sketch_batch(frag_seqs)
+        allowed = [self._allowed_mask(q) for q in queries]
+        qg = [self._get_ref_group(q.name) if p.skip_prefix else -1
+              for q in queries]
+        out = []
+        for fi, fr in enumerate(frags):
+            q = queries[fr.query_idx]
+            out.append(self._map_fragment(
+                q, fr, h[fi], st[fi], cnt[fi], cx[fi],
+                allowed[fr.query_idx], qg[fr.query_idx]))
+        return out
+
+    def _assemble(self, queries, frags, rows_by_frag):
+        """Per-query post-processing (mapModule, computeMap.hpp:674-712)."""
+        results: List[Tuple[_Query, List[MappingResult]]] = []
+        fi = 0
+        for qi, q in enumerate(queries):
+            frag_rows = []
+            while fi < len(frags) and frags[fi].query_idx == qi:
+                frag_rows.append((frags[fi], rows_by_frag[fi]))
+                fi += 1
+            results.append((q, self._postprocess_query(q, frag_rows)))
+        return results
+
+    def _postprocess_query(self, q: _Query, frag_rows) -> \
+            List[MappingResult]:
+        """Merge / filter one query's fragment rows (computeMap.hpp:
+        674-712). `frag_rows` is [(fragment, rows)] in fragment order."""
+        p = self.p
+        qlen = len(q.seq)
+        unfiltered: List[MappingResult] = []
+        split_mapping = p.split and qlen > p.seg_length
+        for fr, rows in frag_rows:
+            if split_mapping:
+                for m in rows:
+                    m.query_len = qlen
+                    m.query_start = fr.q_start
+                    m.query_end = fr.q_start + fr.q_len
+            unfiltered.extend(rows)
+
+        n_mappings = (p.num_mappings_for_short_sequence
+                      if qlen < p.seg_length
+                      else p.num_mappings_for_segment) - 1
+
+        if split_mapping and p.merge_mappings:
+            unfiltered = merge.merge_mappings_in_range(
+                unfiltered, p.chain_gap)
+            unfiltered = filters.filter_weak_mappings(
+                unfiltered, p.block_length // p.seg_length)
+
+        if p.filter_mode in (FILTER_MAP, FILTER_ONETOONE):
+            unfiltered = self._filter_by_group(
+                unfiltered, n_mappings, filter_ref=False)
+
+        if p.filter_length_mismatches:
+            unfiltered = filters.filter_false_high_identity(
+                unfiltered, p.percentage_identity)
+
+        filters.mapping_boundary_sanity_check(
+            unfiltered, qlen, self.idx.lengths)
+        return filters.sparsify_mappings(
+            unfiltered, p.sparsity_hash_threshold)
+
+    # --- device fragment pipeline ------------------------------------
+    def _device_tables(self):
+        """The index and lookup tables on the device (once)."""
+        if self._dev is not None:
+            return self._dev
+        p = self.p
+        idx = self.idx
+        mh_table = np.ones(p.sketch_size + 1, np.int32)
+        for sq in range(1, p.sketch_size + 1):
+            mh_table[sq] = max(1, self._minimum_hits(sq))
+        ct = (self.cutoff_table.astype(np.int32)
+              if self.cutoff_table is not None else np.ones(2, np.int32))
+
+        def put(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+        self._dev = {
+            "min_hits_table": put(mh_table),
+            "cutoff_table": put(ct),
+            "ref_group": put(self.ref_groups.astype(np.int32)),
+            "uniq_flip": flip(put(idx.uniq_hashes.view(np.int64))),
+            "post_offsets": put(idx.post_offsets.astype(np.int64)),
+            "post_seqid": put(idx.post_seqid),
+            "post_wpos": put(idx.post_wpos),
+            "post_wend": put(idx.post_wend),
+            "is_frequent": put(idx.is_frequent),
+            "mi_key": put(self.mi_key),
+            "mi_seqid": put(idx.mi_seqid),
+            "mi_wpos": put(idx.mi_wpos),
+            "mi_rank": put(idx.mi_rank),
+            "mi_wend": put(idx.mi_wend),
+            "mi_strand": put(idx.mi_strand),
+        }
+        return self._dev
+
+    def _l1cfg(self):
+        from ..kernels.mapdev import L1Config
+        p = self.p
+        if self._cfg is not None:
+            return self._cfg
+        if p.skip_prefix:
+            ng = 1 << max(3, int(self.ref_groups.max() + 1).bit_length())
+        else:
+            ng = 8
+        self._cfg = L1Config(
+            k=p.kmer_size, s=p.sketch_size, seg_length=p.seg_length,
+            p_cap=p.l1_postings_cap, c_cap=p.l1_candidates_cap,
+            t_cap=p.l2_entries_cap, table_scale=self.table_scale,
+            n_groups=ng)
+        return self._cfg
+
+    def _prepare_query(self, q: _Query) -> None:
+        q.u8 = kmers.sanitize(q.seq.encode("ascii"))
+        q.allowed = self._allowed_mask(q)
+        q.qg = self._get_ref_group(q.name) if self.p.skip_prefix else -1
+
+    def _run_fragments_device(self, queries, frags):
+        """One device batch over `frags`, then host post-processing."""
+        for q in queries:
+            if q.u8 is None:
+                self._prepare_query(q)
+        for fr in frags:
+            fr.q = queries[fr.query_idx]
+        ctx = self._dispatch_batch(frags)
+        self._collect_l1(ctx)
+        self._collect_l2(ctx)
+        return [rows for _, rows in self._post_batch(ctx)]
+
+    def _dispatch_batch(self, frags) -> _Batch:
+        """Stage 1: host matrix prep + l1_step."""
+        from ..kernels.mapdev import l1_step
+
+        p = self.p
+        dev = self._device_tables()
+        cfg = self._l1cfg()
+        B = len(frags)
+        Bp = _batch_pad_rows(B, p.batch_fragments)
+        L = p.seg_length
+        mat = np.full((Bp, L), ord("N"), np.uint8)
+        allowed = np.zeros((Bp, self.idx.n_contigs), bool)
+        for i, fr in enumerate(frags):
+            mat[i, :fr.q_len] = fr.q.u8[fr.q_start:fr.q_start + fr.q_len]
+            allowed[i] = True if fr.q.allowed is None else fr.q.allowed
+        out, qh_dev, qs_dev = l1_step(
+            torch.from_numpy(mat).to(self.device), dev["uniq_flip"],
+            dev["post_offsets"], dev["post_seqid"], dev["post_wpos"],
+            dev["post_wend"], dev["is_frequent"], dev["min_hits_table"],
+            dev["cutoff_table"], torch.from_numpy(allowed).to(self.device),
+            dev["ref_group"], dev["mi_key"], cfg)
+        return _Batch(frags=frags, mat=mat[:B], out=out,
+                      qh_dev=qh_dev, qs_dev=qs_dev)
+
+    def _collect_l1(self, ctx: _Batch):
+        """Stage 2: fetch l1 meta, derive L2 work, run the l2 chunks."""
+        from ..kernels.mapdev import unpack_l1_meta, l2_step
+
+        p = self.p
+        dev = self._dev
+        cfg = self._l1cfg()
+        frags = ctx.frags
+        B = len(frags)
+        L = p.seg_length
+        o = unpack_l1_meta(ctx.out.cpu().numpy()[:B], cfg.c_cap)
+        ctx.out = None
+        ctx.o = o
+
+        # complexity rescale for 'N'-padded fragments
+        cx = np.array([
+            float(o["complexity"][i]) * (L - p.kmer_size + 1)
+            / max(1, frags[i].q_len - p.kmer_size + 1)
+            for i in range(B)])
+        ctx.cx = cx
+
+        work = []
+        host_frags = set()
+        for i, fr in enumerate(frags):
+            if o["overflow"][i]:
+                host_frags.add(i)
+                self.path_stats["host_frags"] += 1
+                continue
+            if int(o["s_q"][i]) == 0 \
+                    or cx[i] < p.kmer_complexity_threshold:
+                continue
+            for j in range(int(o["n_cand"][i])):
+                work.append((i, j, int(o["cand_lo"][i, j]),
+                             int(o["cand_mid"][i, j]),
+                             int(o["cand_hi"][i, j])))
+        ctx.host_frags = host_frags
+
+        # bucket work items by interval-slice length; W*T stays constant
+        AREA = p.l2_batch * p.l2_entries_cap // 2
+        buckets: dict[int, list] = {t: [] for t in T_BUCKETS}
+        host_l2_set = set()
+        for w in work:
+            span = w[4] - w[2]
+            for t in T_BUCKETS:
+                if span <= t:
+                    buckets[t].append(w)
+                    self.path_stats["l2_buckets"][t] = \
+                        self.path_stats["l2_buckets"].get(t, 0) + 1
+                    break
+            else:
+                host_l2_set.add((w[0], w[1]))
+                self.path_stats["host_l2"] += 1
+        pending = []
+        for T, todo in buckets.items():
+            W_STEP = max(8, AREA // T)
+            # a trailing partial chunk drops to a quarter-width call
+            W_SMALL = max(8, W_STEP // 4)
+            for w0 in range(0, len(todo), W_STEP):
+                chunk = todo[w0:w0 + W_STEP]
+                Wp = W_SMALL if len(chunk) <= W_SMALL else W_STEP
+                wa = np.zeros((4, Wp), np.int32)       # lo, mid, hi, seq
+                fidx = np.zeros(Wp, np.int64)
+                sqv = np.ones(Wp, np.int32)
+                for r, (i, j, lo, mid, hi) in enumerate(chunk):
+                    wa[:, r] = (lo, mid, hi, int(o["cand_seq"][i, j]))
+                    fidx[r] = i
+                    sqv[r] = o["s_q"][i]
+                wd = torch.from_numpy(wa).to(self.device)
+                fi = torch.from_numpy(fidx).to(self.device)
+                buf = l2_step(
+                    wd[0], wd[1], wd[2], wd[3], ctx.qh_dev[fi],
+                    ctx.qs_dev[fi], torch.from_numpy(sqv).to(self.device),
+                    dev["mi_rank"], dev["mi_wpos"], dev["mi_wend"],
+                    dev["mi_strand"], dev["mi_seqid"], T, p.sketch_size)
+                pending.append((chunk, buf))
+        ctx.pending = pending
+        ctx.host_l2_set = host_l2_set
+
+    def _collect_l2(self, ctx: _Batch):
+        """Stage 3: one copy of all l2 run buffers + host-replay rows."""
+        from ..kernels.mapdev import unpack_l2_runs
+
+        p = self.p
+        o = ctx.o
+        host_l2_set = ctx.host_l2_set
+        loci_by = {}
+        if ctx.pending:
+            all_runs = torch.cat([b for _, b in ctx.pending]).cpu().numpy()
+            row0 = 0
+            for chunk, b in ctx.pending:
+                nrows = b.shape[0]
+                n_runs, best, r_ovf, starts, ends, strands = \
+                    unpack_l2_runs(all_runs[row0:row0 + nrows])
+                row0 += nrows
+                for r, (i, j, lo, mid, hi) in enumerate(chunk):
+                    if r_ovf[r]:
+                        host_l2_set.add((i, j))
+                        continue
+                    loci_by[(i, j)] = l2_mod.loci_from_runs(
+                        n_runs[r], best[r], starts[r], ends[r],
+                        strands[r], int(o["cand_seq"][i, j]),
+                        p.seg_length)
+        ctx.pending = None
+        ctx.loci_by = loci_by
+
+        # sketch rows only for fragments whose L2 replays on the host
+        need = sorted({i for (i, _j) in host_l2_set})
+        qh_host = {}
+        if need:
+            ix = torch.tensor(need, dtype=torch.int64, device=self.device)
+            qh_rows = ctx.qh_dev[ix].cpu().numpy()
+            qs_rows = ctx.qs_dev[ix].cpu().numpy()
+            qh_host = {i: (qh_rows[t], qs_rows[t])
+                       for t, i in enumerate(need)}
+        ctx.qh_host = qh_host
+        ctx.qh_dev = ctx.qs_dev = None
+
+    def _post_batch(self, ctx: _Batch):
+        """Stage 4: per-fragment row assembly with exact pruning
+        semantics. Returns [(fragment, rows)] in batch order."""
+        from ..kernels.sketch import sketch_sequence_py
+
+        p = self.p
+        o = ctx.o
+        cx = ctx.cx
+        host_l2_set = ctx.host_l2_set
+        loci_by = ctx.loci_by
+        qh_host = ctx.qh_host
+        out = []
+        for i, fr in enumerate(ctx.frags):
+            q = fr.q
+            if i in ctx.host_frags:
+                oh, ostr, ocnt, ocx = sketch_sequence_py(
+                    ctx.mat[i, :fr.q_len], p.kmer_size, p.sketch_size)
+                out.append((fr, self._map_fragment(
+                    q, fr, oh, ostr, ocnt, ocx, q.allowed, q.qg)))
+                continue
+            s_q = int(o["s_q"][i])
+            if s_q == 0 or cx[i] < p.kmer_complexity_threshold:
+                out.append((fr, []))
+                continue
+            if i in qh_host:
+                hashes = qh_host[i][0][:s_q]
+                strands = qh_host[i][1][:s_q].astype(np.int64)
+            else:       # only consumed on host-L2 replay, never here
+                hashes = strands = None
+            cands = [
+                l1_mod.L1Candidate(
+                    int(o["cand_seq"][i, j]), int(o["cand_start"][i, j]),
+                    int(o["cand_end"][i, j]), int(o["cand_inter"][i, j]))
+                for j in range(int(o["n_cand"][i]))]
+            cand_j = {id(c): j for j, c in enumerate(cands)}
+
+            def loci_fn(c, _i=i, _cand_j=cand_j, _h=hashes, _s=strands):
+                j = _cand_j[id(c)]
+                if (_i, j) in host_l2_set:
+                    return l2_mod.l2_mapped_regions(
+                        self.idx, self.mi_key, _h, _s, c.seq_id,
+                        c.range_start, c.range_end, p.seg_length, 0,
+                        q_are_codes=True)
+                return loci_by.get((_i, j), [])
+
+            if p.skip_prefix:
+                rows = []
+                groups: dict[int, list] = {}
+                for c in cands:
+                    groups.setdefault(
+                        int(self.ref_groups[c.seq_id]), []).append(c)
+                for gv in sorted(groups):
+                    rows.extend(self._do_l2(
+                        q, fr, hashes, strands, s_q, cx[i],
+                        groups[gv], loci_fn))
+            else:
+                rows = self._do_l2(q, fr, hashes, strands, s_q, cx[i],
+                                   cands, loci_fn)
+            rows.sort(key=lambda m: (m.ref_seq_id, m.ref_start))
+            out.append((fr, rows))
+        return out
+
+    def _filter_by_group(self, rows: List[MappingResult], n_mappings: int,
+                         filter_ref: bool) -> List[MappingResult]:
+        """filterByGroup (computeMap.hpp:504-561)."""
+        p = self.p
+        rows = sorted(rows, key=lambda m: (m.ref_seq_id, m.ref_start))
+        out: List[MappingResult] = []
+        i = 0
+        while i < len(rows):
+            if p.skip_prefix:
+                g = self.ref_groups[rows[i].ref_seq_id]
+                j = i
+                while j < len(rows) and \
+                        self.ref_groups[rows[j].ref_seq_id] == g:
+                    j += 1
+            else:
+                j = len(rows)
+            sub = sorted(rows[i:j], key=lambda m: (
+                m.query_start, m.ref_seq_id, m.ref_start))
+            if filter_ref:
+                filters.filter_by_ref_axis(sub, n_mappings,
+                                           self.idx.lengths)
+            else:
+                filters.filter_by_query_axis(sub, n_mappings)
+            out.extend(sub)
+            i = j
+        out.sort(key=lambda m: (m.query_start, m.ref_seq_id, m.ref_start))
+        return out
+
+    # ------------------------------------------------------------------
+    def _run_batched(self, queries, out: IO[str]) -> None:
+        """Streaming device mapping, one batch at a time.
+
+        Fragments stream into fixed-size batches; a query's fragments may
+        land in different batches, so per-query rows accumulate on the
+        _Query and each query finalizes — merge/filter/emit, in input
+        order — once its last fragment is delivered.
+        """
+        import collections
+        p = self.p
+        finalq: collections.deque = collections.deque()
+        cur: list = []
+
+        def run_batch():
+            nonlocal cur
+            if not cur:
+                return
+            ctx = self._dispatch_batch(cur)
+            cur = []
+            self._collect_l1(ctx)
+            self._collect_l2(ctx)
+            for fr, rows in self._post_batch(ctx):
+                fr.q.rows[fr.ord] = (fr, rows)
+                fr.q.done += 1
+            while finalq and finalq[0].done == finalq[0].n_frags:
+                q = finalq.popleft()
+                self._emit(q, self._postprocess_query(q, q.rows), out)
+                q.rows = q.u8 = q.allowed = None
+
+        for q in queries:
+            self._prepare_query(q)
+            fl = self._fragment_query(len(q.seq))
+            q.n_frags = len(fl)
+            q.rows = [None] * len(fl)
+            finalq.append(q)
+            for o_, (qs, qlen) in enumerate(fl):
+                cur.append(_Fragment(
+                    0, qs, qlen, max(0, qlen - p.seg_length),
+                    q=q, ord=o_))
+                if len(cur) == p.batch_fragments:
+                    run_batch()
+        run_batch()
+        assert not finalq, "batched path left unfinished queries"
+
+    def run(self, query_files: Sequence[str], out: IO[str],
+            progress: Optional[bool] = None) -> None:
+        """Full mapQuery equivalent: stream files, map, write output.
+        (No progress meter is painted; ``progress`` is accepted for
+        parity with the JAX package.)"""
+        from ..io import for_each_seq_in_file
+        p = self.p
+        t0 = time.time()
+
+        def owned_queries():
+            """Queries in file order, maintaining the global counters and
+            one-to-one metadata."""
+            for fname in query_files:
+                for name, seq in for_each_seq_in_file(fname):
+                    qlen = len(seq)
+                    if p.filter_mode == FILTER_ONETOONE:
+                        self.qmetadata.append((name, qlen))
+                    if qlen >= p.kmer_size:
+                        self.total_reads_picked += 1
+                        yield _Query(name, seq, self.total_seq_counter)
+                    else:
+                        logger.warning(
+                            "read %s of %dbp is not long enough for "
+                            "mapping", name, qlen)
+                    self.total_seq_counter += 1
+                    self.total_bp += qlen
+
+        if p.use_device_pipeline and p.split:
+            self._run_batched(owned_queries(), out)
+        else:
+            pending: List[_Query] = []
+            pending_frags = 0
+
+            def flush():
+                nonlocal pending, pending_frags
+                for qq, rows in self.map_queries(pending):
+                    self._emit(qq, rows, out)
+                pending = []
+                pending_frags = 0
+
+            for q in owned_queries():
+                pending.append(q)
+                pending_frags += max(1, len(q.seq) // p.seg_length)
+                if pending_frags >= p.batch_fragments:
+                    flush()
+            if pending:
+                flush()
+
+        if p.filter_mode == FILTER_ONETOONE:
+            self._finish_one_to_one(out)
+
+        logger.info(
+            "count of mapped reads = %d, reads qualified for mapping = %d, "
+            "total input reads = %d, total input bp = %d [%.1fs]",
+            self.total_reads_mapped, self.total_reads_picked,
+            self.total_seq_counter, self.total_bp, time.time() - t0)
+
+    def _emit(self, q: _Query, rows: List[MappingResult],
+              out: IO[str]) -> None:
+        if rows:
+            self.total_reads_mapped += 1
+        if self.p.filter_mode == FILTER_ONETOONE:
+            self._buffered.extend(rows)
+        else:
+            output.write_mappings(
+                out, rows, lambda m: q.name, self.idx.names,
+                self.idx.lengths, self.p.legacy_output,
+                self.p.merge_mappings, self.p.report_ANI_percentage)
+
+    def _finish_one_to_one(self, out: IO[str]) -> None:
+        """Reference-axis global pass (mapQuery, computeMap.hpp:357-405)."""
+        p = self.p
+        n = p.num_mappings_for_segment - 1
+        rows = self._buffered
+        result: List[MappingResult] = []
+        i = 0
+        while i < len(rows):
+            if p.skip_prefix:
+                g = self._get_ref_group(
+                    self.qmetadata[rows[i].query_seq_id][0])
+                j = i
+                while j < len(rows) and self._get_ref_group(
+                        self.qmetadata[rows[j].query_seq_id][0]) == g:
+                    j += 1
+            else:
+                j = len(rows)
+            sub = rows[i:j]
+            result.extend(self._filter_by_group(sub, n, filter_ref=True))
+            i = j
+        result.sort(key=lambda m: (m.query_seq_id, m.query_start,
+                                   m.ref_seq_id, m.ref_start))
+        output.write_mappings(
+            out, result,
+            lambda m: self.qmetadata[m.query_seq_id][0],
+            self.idx.names, self.idx.lengths, p.legacy_output,
+            p.merge_mappings, p.report_ANI_percentage)

@@ -1,0 +1,75 @@
+"""The port stands alone: no module of mashmap_tpu_torch imports JAX or
+the JAX package, and its entry points default to the CUDA device."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "mashmap_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "mashmap_tpu")
+
+
+def _modules():
+    for dirpath, _, files in os.walk(PKG):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+
+
+def _imported_roots(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    mods = list(_modules())
+    assert len(mods) > 20
+    bad = [(os.path.relpath(p, ROOT), r) for p in mods
+           for r in _imported_roots(p) if r in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_port_imports_with_jax_blocked():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['mashmap_tpu'] = None; "
+            "import mashmap_tpu_torch.api, mashmap_tpu_torch.map.engine; "
+            "assert not any(m == 'jax' or m.startswith('jax.') "
+            "for m in sys.modules if sys.modules[m] is not None)")
+    env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
+    """Without a device argument the entry points ask for CUDA and raise
+    on a host without it, instead of running on the CPU."""
+    import torch
+    from mashmap_tpu_torch.api import map_files
+    from mashmap_tpu_torch.index.builder import build_index
+    from mashmap_tpu_torch.params import Parameters
+    from mashmap_tpu_torch.utils import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fa = tmp_path / "r.fa"
+    fa.write_text(">c\n" + "ACGT" * 300 + "\n")
+    p = Parameters(ref_sequences=[str(fa)], out_file_name=str(tmp_path / "o"),
+                   kmer_size=11, seg_length=500, sketch_size=8,
+                   no_progress=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        map_files(p)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_index([("c", "ACGT" * 300)], 11, 500, 8)
+    assert not (tmp_path / "o").exists()
+    assert resolve_device("cpu") == torch.device("cpu")
