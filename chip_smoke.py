@@ -7,11 +7,19 @@ Phases, in order; any failure propagates and exits non-zero:
 
 1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: the theta kernel (kernels/csrc/theta.cu) with nvcc for sm_90a;
+2. build: the theta kernels (kernels/csrc/theta.cu) with nvcc for
+   sm_90a, and each instance's registers and spills from ptxas;
 3. kernel against plain version: theta_chunk on the card equals
-   theta_chunk_ref exactly at the listed shapes and invalid fractions,
-   then on the block rows of the main path's own input, where both are
-   also timed;
+   theta_chunk_ref exactly at the listed shapes and invalid fractions
+   and at the schedule's edges (CHECK_EDGES), then on the block rows of
+   the main path's own input, where both are also timed (and the kernel
+   on the first 64 of those rows); each [theta] line is followed by the
+   segment length K, the chains, the resident warps per SM, the share
+   of offsets where a set changed, and the shares where kernel B's rule
+   merges in full and moves theta by one place (host predictions from
+   the rows and the kernel's output, not counts taken in the kernel);
+   the record carries the bound from the bytes and int32 operations
+   these rows need;
 4. main path: build_or_load_index + map_files on "cuda" with bench.py's
    parameters on its 6 Mbp pangenome (4 x 1.5 Mbp), theta launches
    counted, and the reference's CI coverage gate (every sequence >= 0.92);
@@ -41,14 +49,27 @@ SMALL = (3, 200_000, 0.05, 7)
 PI = 0.85
 BATCH = 1024
 
-# theta kernel against its plain version: (C, S_B, s) x RSENT fraction
+# theta kernel against its plain version: (C, S_B, s) x RSENT fraction,
+# on ranks drawn from [0, 4 * S_B)
 CHECK_SHAPES = ((64, 4982, 130), (64, 513, 30), (32, 4982, 398))
 CHECK_INVALID = (0.0, 0.02, 0.5)
+# and the edges of the two-kernel schedule (segments of 128 offsets):
+# (C, S_B, s, RSENT fraction, rank alphabet)
+CHECK_EDGES = (
+    (64, 4982, 130, 0.02, 4),       # 4-letter alphabet: duplicate runs
+    (64, 4982, 130, 0.02, 300),     # alphabet near 2s: the sets share ranks
+    (64, 100, 30, 0.1, None),       # S_B below the segment length
+    (64, 1000, 130, 0.02, None),    # S_B not a multiple of it
+    (64, 4982, 1, 0.02, None),      # s = 1
+    (32, 4982, 512, 0.02, None),    # s = S_MAX
+    (1208, 4982, 310, 0.02, None),  # s of a human-scale reference
+    (64, 300, 40, 0.85, 5000),      # sparse windows: RSENT thetas
+)
 
-# one H100 SXM (NVIDIA's data sheet): HBM rate, and the float32 rate
-# outside the tensor cores, the highest any int32 compare can issue
+# one H100 SXM: HBM rate (NVIDIA's data sheet), and the int32 compare
+# rate: 132 SMs x 64 int32 lanes x 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 def coverage(paf_lines):
@@ -115,34 +136,165 @@ def max_abs_err(got, want):
     return int((got.long() - want.long()).abs().max())
 
 
-def check_theta(device, shapes=CHECK_SHAPES, invalid=CHECK_INVALID):
-    """theta_chunk against theta_chunk_ref, exactly, on random ranks;
-    returns the largest absolute difference (0)."""
+def theta_schedule_counts(cur, nxt, s, K, theta=None):
+    """What theta over these block rows needs, counted on the host.
+
+    Walks each row's suffix set (backward over cur) and prefix set
+    (forward over nxt) as kernel A does and returns a dict: ins_s and
+    ins_p, the effective inserts into each set; changed, the offsets
+    where either set changed (the bound uses these three). Given the
+    theta the rows produce, also what kernel B's rule predicts, as the
+    kernel source and the CPU model in tests/test_torch_theta.py state
+    it: merged, the offsets merged in full (every segment's first, and
+    those after a prefix insert that pushed theta out of the prefix
+    set), and updated, the steps where a change at or below theta moves
+    it instead. These two are predictions, not counts the kernel made.
+    """
     import numpy as np
+    from mashmap_tpu_torch.kernels.theta import RSENT
+    cur, nxt = np.asarray(cur), np.asarray(nxt)
+    C, s_b = cur.shape
+    ar = np.arange(s)
+
+    def walk(vals, order):
+        """Which offsets changed the set, and what each change pushed
+        out of slot s-1."""
+        st = np.full((C, s), RSENT, dtype=np.int32)
+        chg = np.zeros((C, s_b), dtype=bool)
+        pushed = np.zeros((C, s_b), dtype=np.int32)
+        for j in order:
+            v = vals[:, j]
+            rows = np.nonzero(v < st[:, -1])[0]
+            if rows.size == 0:
+                continue
+            sr, vr = st[rows], v[rows, None]
+            new = ~(sr == vr).any(axis=1)
+            rows, sr, vr = rows[new], sr[new], vr[new]
+            pos = (sr < vr).sum(axis=1, keepdims=True)
+            shifted = np.concatenate([sr[:, :1], sr[:, :-1]], axis=1)
+            st[rows] = np.where(ar < pos, sr,
+                                np.where(ar == pos, vr, shifted))
+            chg[rows, j] = True
+            pushed[rows, j] = sr[:, -1]
+        return chg, pushed
+
+    s_chg, _ = walk(cur, range(s_b - 1, -1, -1))
+    p_chg, p_out = walk(nxt, range(s_b))
+    out = {"ins_s": int(s_chg.sum()), "ins_p": int(p_chg.sum()),
+           "changed": int((s_chg | p_chg).sum()), "offsets": C * s_b}
+    if theta is not None:
+        th = np.asarray(theta)
+        low = (s_chg & (cur <= th)) | (p_chg & (nxt <= th))
+        full = low & (th != RSENT) & p_chg & (p_out == th)
+        out["updated"] = int((low & ~full).sum())
+        full = full[:, :-1]
+        full[:, K - 1::K] = False       # the next offset starts a segment
+        out["merged"] = int(full.sum()) + C * -(-s_b // K)
+    return out
+
+
+def theta_bound_ms(C, s_b, s, counts):
+    """The least time the card could take for theta over these rows:
+    cur and nxt read once and theta written once, over the HBM rate;
+    the int32 operations these inputs need, over the int32 rate: one
+    compare per offset per set (does the rank enter it), s per
+    effective insert into either set (placing it in a sorted set of s
+    and shifting the rest; a binary search would compare fewer, the
+    shift moves up to s), and 2 per offset where a set changed (the
+    change against theta, and theta's neighbour in the union, which
+    a position kept per set finds in O(1); no merge is needed).
+    Returns (ms, "bytes" or "operations")."""
+    n_bytes = 3 * C * s_b * 4
+    n_ops = (s * (counts["ins_s"] + counts["ins_p"])
+             + 2 * counts["changed"] + 2 * C * s_b)
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * n_ops / INT32_OPS_PER_S
+    print(f"[theta]   bound: bytes {n_bytes} ({t_bytes} ms), int32 "
+          f"operations {n_ops} ({t_ops} ms)")
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def theta_schedule_line(C, s_b, s, counts):
+    """The kernels' geometry at this shape, the share of offsets where a
+    set changed, and the shares where kernel B's rule merges in full and
+    moves theta by one place (host predictions)."""
+    from mashmap_tpu_torch.kernels import theta
+    _, k, n_seg = theta.kernel_geometry(s, s_b)
+    warps_a, warps_b = theta.resident_warps(s)
+    n = counts["offsets"]
+    print(f"[theta]   K={k} chains={C * n_seg} resident warps/SM: "
+          f"A {warps_a} B {warps_b}; changed share "
+          f"{counts['changed'] / n}; host prediction of B: merged share "
+          f"{counts['merged'] / n}, stepped share {counts['updated'] / n}")
+
+
+def random_rows(C, s_b, s, frac, alphabet=None):
+    """(cur, nxt) int32 block rows of random ranks from [0, alphabet)
+    (default 4 * S_B), a share frac of them RSENT, seeded by the shape."""
+    import numpy as np
+    rng = np.random.default_rng(C + s_b + s)
+    hi = alphabet or 4 * s_b
+    cur = rng.integers(0, hi, (C, s_b)).astype(np.int32)
+    nxt = rng.integers(0, hi, (C, s_b)).astype(np.int32)
+    cur[rng.random((C, s_b)) < frac] = np.iinfo(np.int32).max
+    nxt[rng.random((C, s_b)) < frac] = np.iinfo(np.int32).max
+    return cur, nxt
+
+
+def check_theta(device):
+    """theta_chunk against theta_chunk_ref, exactly, on random ranks at
+    CHECK_SHAPES x CHECK_INVALID and at CHECK_EDGES; returns the largest
+    absolute difference (0)."""
     import torch
     from mashmap_tpu_torch.kernels import theta
+    cases = [(C, s_b, s, frac, None) for (C, s_b, s) in CHECK_SHAPES
+             for frac in CHECK_INVALID] + list(CHECK_EDGES)
     worst = 0
-    for (C, s_b, s) in shapes:
-        for frac in invalid:
-            rng = np.random.default_rng(C + s_b + s)
-            cur = rng.integers(0, 4 * s_b, (C, s_b)).astype(np.int32)
-            nxt = rng.integers(0, 4 * s_b, (C, s_b)).astype(np.int32)
-            cur[rng.random((C, s_b)) < frac] = theta.RSENT
-            nxt[rng.random((C, s_b)) < frac] = theta.RSENT
-            c = torch.from_numpy(cur).to(device)
-            n = torch.from_numpy(nxt).to(device)
-            err = max_abs_err(theta.theta_chunk(c, n, s, s_b),
-                              theta.theta_chunk_ref(c, n, s, s_b))
-            ms = time_ms(lambda: theta.theta_chunk(c, n, s, s_b),
-                         reps=5, warmup=0)
-            print(f"[theta] C={C} S_B={s_b} s={s} invalid={frac}: "
-                  f"max_abs_err={err} kernel {ms} ms")
-            if err != 0:
-                raise AssertionError(
-                    f"theta kernel disagrees with its plain version at "
-                    f"C={C} S_B={s_b} s={s} invalid={frac}")
-            worst = max(worst, err)
+    for (C, s_b, s, frac, alphabet) in cases:
+        hi = alphabet or 4 * s_b
+        cur, nxt = random_rows(C, s_b, s, frac, hi)
+        c = torch.from_numpy(cur).to(device)
+        n = torch.from_numpy(nxt).to(device)
+        got = theta.theta_chunk(c, n, s, s_b)
+        err = max_abs_err(got, theta.theta_chunk_ref(c, n, s, s_b))
+        ms = time_ms(lambda: theta.theta_chunk(c, n, s, s_b),
+                     reps=5, warmup=0)
+        print(f"[theta] C={C} S_B={s_b} s={s} invalid={frac} "
+              f"alphabet={hi}: max_abs_err={err} kernel {ms} ms")
+        theta_schedule_line(C, s_b, s, theta_schedule_counts(
+            cur, nxt, s, theta.SEG_K, got.cpu().numpy()))
+        if err != 0:
+            raise AssertionError(
+                f"theta kernel disagrees with its plain version at "
+                f"C={C} S_B={s_b} s={s} invalid={frac} alphabet={hi}")
+        worst = max(worst, err)
     return worst
+
+
+def print_ptxas(log):
+    """Registers, spill bytes and shared memory of each kernel instance,
+    from nvcc's -Xptxas -v report of this build."""
+    import re
+    if not os.path.exists(log):
+        print(f"[build] no ptxas report at {log} (library built earlier)")
+        return
+    with open(log) as fh:
+        text = fh.read()
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+(theta_\w+?_kernel)"
+                      r"ILi(\d+)E", line)
+        if m:
+            name, spill = f"{m.group(1)}<{m.group(2)}>", "spills not read"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = f"spill st/ld {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            print(f"[build] {name}: {m.group(1)} registers, {spill}")
+            name = None
 
 
 def main_path_blocks(fa, p, device):
@@ -183,23 +335,21 @@ def theta_record(fa, p, device, kernel_reps=20, plain_reps=3):
         raise AssertionError(
             f"theta kernel disagrees with its plain version on the main "
             f"path's block rows (C={C} S_B={s_b} s={s}): max_abs_err={err}")
-    # each input read once and the output written once; per offset at
-    # least one compare per element of the two s-sets it merges and one
-    # insert test for each of the two sets
-    n_bytes = 3 * C * s_b * 4
-    n_ops = C * s_b * (2 * s + 2)
-    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * n_ops / ALU_OPS_PER_S
+    c64, n64 = cur[:64].contiguous(), nxt[:64].contiguous()
+    ms64 = time_ms(lambda: theta.theta_chunk(c64, n64, s, s_b),
+                   kernel_reps)
     print(f"[theta] main-path block rows C={C} S_B={s_b} s={s}: "
-          f"max_abs_err={err} kernel {ms} ms, plain {plain_ms} ms, "
-          f"bytes {n_bytes}, ops {n_ops}")
+          f"max_abs_err={err} kernel {ms} ms (first 64 rows {ms64} ms), "
+          f"plain {plain_ms} ms")
+    counts = theta_schedule_counts(cur.cpu().numpy(), nxt.cpu().numpy(), s,
+                                   theta.SEG_K, out["got"].cpu().numpy())
+    theta_schedule_line(C, s_b, s, counts)
+    bound_ms, bound_by = theta_bound_ms(C, s_b, s, counts)
     return {"name": "theta_chunk", "route": "cuda",
             "source": "mashmap_tpu_torch/kernels/csrc/theta.cu",
             "replaces": "mashmap_tpu/kernels/winnow_pallas.py:136",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def main_path(fa, device):
@@ -313,6 +463,9 @@ def profile_main_path(fa, device, top=12):
               f"{1 - busy_ms / wall_ms if rows else 'not measured'}")
         for ms, n, key in rows[:top]:
             print(f"[profile] {phase}:   {ms} ms x{n} {key[:90]}")
+        for ms, n, key in rows:
+            if "theta_" in key:
+                print(f"[profile] {phase}: theta {ms} ms x{n} {key[:40]}")
 
 
 def card_vs_cpu(fa, device):
@@ -371,6 +524,7 @@ def main():
     theta.load_library()
     print(f"[build] theta.cu built and loaded in "
           f"{time.perf_counter() - t0} s")
+    print_ptxas(theta.ptxas_log_path())
 
     # 3. kernel against plain version, then times on the main path's rows
     fa_main = fasta(N_HAP, HAP_LEN, DIVERGENCE, SEED)

@@ -10,14 +10,15 @@ On a CUDA tensor it launches ``csrc/theta.cu`` (built with nvcc for
 sm_90a at first use, loaded with ctypes); on a CPU tensor it runs the
 plain version ``theta_chunk_ref``. There is no fallback between the two.
 
-What bounds the kernel on an H100: it reads cur and nxt and writes theta
-once (12 bytes per offset) and does O(s) int32 compares per offset, so
-neither HBM nor the ALUs bound it; the chain of one merge and two
-inserts per offset is sequential within a row and is bound by on-chip
-latency. The kernel runs one row per warp (many independent chains per
-SM), keeps the row's sets in registers and shared memory, checkpoints
-suffix sets to global memory only every K offsets, and skips most
-inserts with a single compare (see the source's header).
+The CUDA side is two kernels (see the source's header). Kernel A walks
+each row once per direction and stores the suffix and prefix sets at
+every K-th offset plus an eviction log of the suffix walk; kernel B runs
+one independent chain per (row, K-offset segment), steps both sets
+forward from its checkpoints, merges them in full at the segment's first
+offset and otherwise moves theta by one place where a change lands at or
+below it (or, under fewer than s ranks, counts the union until it holds
+s). The rows' C * S_B / K chains keep the SMs busy, where one warp per
+row would leave each row's dependent chain to set the time.
 """
 
 from __future__ import annotations
@@ -49,6 +50,14 @@ def _nvcc() -> str:
     return "nvcc"
 
 
+def ptxas_log_path() -> str:
+    """Where load_library keeps nvcc's -Xptxas -v report (registers,
+    spills and shared memory of each kernel instance) of this source."""
+    with open(_SRC, "rb") as fh:
+        tag = hashlib.sha1(fh.read()).hexdigest()[:12]
+    return os.path.join(_BUILD, f"libtheta_{tag}.ptxas.txt")
+
+
 def load_library():
     """Build csrc/theta.cu with nvcc (once per source version) and load
     it. The library name carries a hash of the source, so an edited
@@ -56,16 +65,20 @@ def load_library():
     global _LIB
     if _LIB is not None:
         return _LIB
-    with open(_SRC, "rb") as fh:
-        tag = hashlib.sha1(fh.read()).hexdigest()[:12]
+    log = ptxas_log_path()
+    so = log[:-len(".ptxas.txt")] + ".so"
     os.makedirs(_BUILD, exist_ok=True)
-    so = os.path.join(_BUILD, f"libtheta_{tag}.so")
     if not os.path.exists(so):
         tmp = f"{so}.{os.getpid()}.tmp"
-        subprocess.run(
+        res = subprocess.run(
             [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-             "-o", tmp, _SRC], check=True)
+             "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
+             "-Xcompiler", "-fPIC", "-o", tmp, _SRC],
+            capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {_SRC}:\n{res.stderr}")
+        with open(log, "w") as fh:
+            fh.write(res.stderr)
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
     lib.theta_chunk_launch.argtypes = [
@@ -73,24 +86,45 @@ def load_library():
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]
     lib.theta_chunk_launch.restype = ctypes.c_int
+    lib.theta_occupancy.argtypes = [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int)]
+    lib.theta_occupancy.restype = ctypes.c_int
     _LIB = lib
     return lib
 
 
+SEG_K = 128  # offsets per chain of kernel B (a multiple of 32)
+
+
 def kernel_geometry(s: int, s_b: int):
-    """(SP, K, n_seg): padded set width, segment length, checkpoints."""
-    sp = 32 * (-(-s // 32))
-    # about 32 KB of shared memory per row, K a power of two in [16, 64]
-    k = max(16, min(64, 1 << ((32768 // (4 * sp)).bit_length() - 1)))
-    return sp, k, -(-s_b // k)
+    """(SP, K, n_seg): padded set width, segment length, segments (and
+    checkpoints of each set) per row."""
+    return 32 * (-(-s // 32)), SEG_K, -(-s_b // SEG_K)
+
+
+def scratch_ints_per_row(s: int, s_b: int) -> int:
+    """Kernel scratch per row: S and P checkpoints, the eviction log."""
+    sp, _, n_seg = kernel_geometry(s, s_b)
+    return 2 * n_seg * sp + s_b
+
+
+def resident_warps(s: int):
+    """(kernel A, kernel B) resident warps per SM at sketch size s, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card."""
+    lib = load_library()
+    a, b = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.theta_occupancy(s, ctypes.byref(a), ctypes.byref(b))
+    if err != 0:
+        raise RuntimeError(f"theta_occupancy failed: CUDA error {err}")
+    return a.value, b.value
 
 
 def theta_rows_per_launch(device: torch.device, s: int, s_b: int) -> int:
-    """Rows per theta_chunk call: the kernel's checkpoint scratch (or
-    the plain version's suffix stack) stays under a fixed budget."""
+    """Rows per theta_chunk call: the kernels' scratch (or the plain
+    version's suffix stack) stays under a fixed budget."""
     if device.type == "cuda":
-        sp, _, n_seg = kernel_geometry(s, s_b)
-        per_row, budget = n_seg * sp * 4, 1 << 30
+        per_row, budget = scratch_ints_per_row(s, s_b) * 4, 1 << 30
     else:
         per_row, budget = s_b * max(s, 1) * 4, 1 << 28
     return max(1, budget // per_row)
@@ -124,13 +158,12 @@ def theta_chunk(cur: torch.Tensor, nxt: torch.Tensor, s: int,
         raise ValueError(f"theta_chunk: unsupported device {cur.device}")
     lib = load_library()
     C = cur.shape[0]
-    sp, k, n_seg = kernel_geometry(s, s_b)
     out = torch.empty_like(cur)
-    ckpt = torch.empty(max(1, C * n_seg * sp), dtype=torch.int32,
-                       device=cur.device)
+    scratch = torch.empty(max(1, C * scratch_ints_per_row(s, s_b)),
+                          dtype=torch.int32, device=cur.device)
     err = lib.theta_chunk_launch(
-        cur.data_ptr(), nxt.data_ptr(), out.data_ptr(), ckpt.data_ptr(),
-        C, s_b, s, k, torch.cuda.current_stream(cur.device).cuda_stream)
+        cur.data_ptr(), nxt.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        C, s_b, s, SEG_K, torch.cuda.current_stream(cur.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"theta_chunk kernel launch failed: CUDA "
                            f"error {err}")

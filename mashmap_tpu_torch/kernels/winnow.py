@@ -102,8 +102,8 @@ def theta_scan_ranks(rank_list: Sequence[torch.Tensor], s: int,
     if cur is None:
         return [None for _ in spans]
     n_total = cur.shape[0]
-    # row chunks bound the kernel's checkpoint scratch (and the plain
-    # version's suffix stack)
+    # row chunks bound the kernels' scratch (and the plain version's
+    # suffix stack)
     step = theta_rows_per_launch(cur.device, s, s_b)
     theta = torch.cat([
         theta_chunk(cur[c0:c0 + step], nxt[c0:c0 + step], s, s_b)

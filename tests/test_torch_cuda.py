@@ -30,13 +30,25 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("C,s_b,s,invalid_frac", [
-    (64, 4982, 130, 0.02), (64, 513, 30, 0.0), (32, 4982, 398, 0.5),
-    (7, 100, 200, 0.0)])   # s above the distinct count: all RSENT
-def test_kernel_matches_plain_version(cuda, C, s_b, s, invalid_frac):
+@pytest.mark.parametrize("C,s_b,s,invalid_frac,alphabet", [
+    (64, 4982, 130, 0.02, None), (64, 513, 30, 0.0, None),
+    (32, 4982, 398, 0.5, None),
+    (7, 100, 200, 0.0, None),      # s above the distinct count: all RSENT
+    (64, 4982, 130, 0.02, 4),      # 4-letter alphabet: duplicate runs
+    (64, 4982, 130, 0.02, 300),    # alphabet near 2s: the sets share ranks
+    (64, 100, 30, 0.1, None),      # S_B below the segment length (128)
+    (64, 1000, 130, 0.02, None),   # S_B not a multiple of it
+    (64, 4982, 1, 0.02, None),     # s = 1
+    (32, 4982, 512, 0.02, None),   # s = S_MAX
+    (1208, 4982, 310, 0.02, None),  # s of a human-scale reference
+    (64, 300, 40, 0.85, 5000),     # sparse windows: theta in and out of RSENT
+])
+def test_kernel_matches_plain_version(cuda, C, s_b, s, invalid_frac,
+                                      alphabet):
     rng = np.random.default_rng(C + s)
-    cur = rng.integers(0, 4 * s_b, (C, s_b)).astype(np.int32)
-    nxt = rng.integers(0, 4 * s_b, (C, s_b)).astype(np.int32)
+    hi = alphabet or 4 * s_b
+    cur = rng.integers(0, hi, (C, s_b)).astype(np.int32)
+    nxt = rng.integers(0, hi, (C, s_b)).astype(np.int32)
     cur[rng.random((C, s_b)) < invalid_frac] = tt.RSENT
     nxt[rng.random((C, s_b)) < invalid_frac] = tt.RSENT
     c = torch.from_numpy(cur).to(cuda)
@@ -46,6 +58,22 @@ def test_kernel_matches_plain_version(cuda, C, s_b, s, invalid_frac):
     torch.cuda.synchronize()
     assert tt.LAUNCHES == before + 1
     assert torch.equal(got, tt.theta_chunk_ref(c, n, s, s_b))
+
+
+@pytest.mark.parametrize("s", [30, 130, 310])
+def test_kernel_on_contig_end_rows(cuda, s):
+    """A contig's last block row has no next block (nxt all RSENT): its
+    last windows hold fewer than s ranks and theta steps in and out of
+    RSENT."""
+    rng = np.random.default_rng(s)
+    cur = rng.integers(0, 20000, (64, 4982)).astype(np.int32)
+    cur[rng.random(cur.shape) < 0.05] = tt.RSENT
+    c = torch.from_numpy(cur).to(cuda)
+    n = torch.full_like(c, tt.RSENT)
+    got = tt.theta_chunk(c, n, s, 4982)
+    want = tt.theta_chunk_ref(c, n, s, 4982)
+    assert (want == tt.RSENT).any()
+    assert torch.equal(got, want)
 
 
 def test_card_index_equals_cpu_index(cuda):

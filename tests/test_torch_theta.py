@@ -91,6 +91,220 @@ def test_cpu_tensor_runs_plain_version_without_launch():
     assert torch.equal(got, ref)
 
 
+# --- CPU model of the CUDA kernel's schedule -------------------------------
+#
+# kernels/csrc/theta.cu runs two kernels. A walks each row once per
+# direction: backward over cur it stores the suffix set at every K-th
+# offset and the eviction log ev[j] (what inserting cur[j] pushed out of
+# slot s-1, RSENT if the set was not full; -1 where the insert was a
+# no-op); forward over nxt it stores the prefix set at every K-th offset.
+# B runs one independent chain per (row, segment): from the segment's
+# two checkpoints it steps the suffix set forward by removing cur[j] and
+# appending ev[j] (the inverse of A's insert) and inserts nxt[j] into the
+# prefix set. theta is merged in full at the segment's first offset;
+# after that only a change at or below theta can move it, and then by
+# one place in the union (to its predecessor or successor; under an
+# RSENT theta, to the union's largest once it holds s ranks), except
+# where the prefix insert pushed theta itself out of the prefix set:
+# there the next offset merges in full. The model below is that schedule
+# in plain Python.
+
+
+def _model_insert(st, v, s):
+    """Insert v into the sorted distinct list st (at most s long); returns
+    the value pushed out of slot s-1 (RSENT if st was not full), or -1
+    where the insert is a no-op."""
+    last = st[s - 1] if len(st) == s else RSENT
+    if v >= last or v in st:
+        return -1
+    st.insert(int(np.searchsorted(st, v)), v)
+    del st[s:]
+    return last
+
+
+def _model_merge(a, b, s):
+    u = sorted(set(a) | set(b))
+    return u[s - 1] if len(u) >= s else RSENT
+
+
+def _model_step_theta(th, ucnt, suf, pre, x, s_low, v, p_low, s_chg, s):
+    """(theta, ucnt) after a step whose changes at or below th are s_low
+    (x left the suffix set) and p_low (v entered the prefix set), given
+    the sets after the step: the union lost x unless the prefix set holds
+    it, gained v unless the suffix set held it, and theta moves by the
+    net count (or to its predecessor where x was theta and v replaced
+    it). Under an RSENT theta neither set is truncated, and ucnt, the
+    union's size, tells when it reaches s (theta is then its largest)."""
+    rem = s_low and x not in pre
+    add = p_low and v not in suf and not (s_chg and v == x)
+    net = int(add) - int(rem)
+    if th == RSENT:
+        ucnt += net
+        return (max(suf + pre) if ucnt == s else RSENT), ucnt
+    if net == 1 or (net == 0 and rem and x == th):
+        return max(y for y in suf + pre if y < th), ucnt
+    if net == -1:
+        th = min((y for y in suf + pre if y > th), default=RSENT)
+        return th, (s - 1 if th == RSENT else ucnt)
+    return th, ucnt
+
+
+def _model_theta_row(cur, nxt, s, K):
+    """theta of one block row by the kernel's schedule; returns (theta,
+    counts): full merges, incremental updates, offsets where a set
+    changed."""
+    s_b = len(cur)
+    n_seg = -(-s_b // K)
+    ev = np.full(s_b, -1, dtype=np.int64)
+    ck_s, ck_p = [None] * n_seg, [None] * n_seg
+    st = []
+    for j in range(s_b - 1, -1, -1):            # kernel A, suffix
+        ev[j] = _model_insert(st, int(cur[j]), s)
+        if j % K == 0:
+            ck_s[j // K] = list(st)
+    st = []
+    for j in range(s_b):                        # kernel A, prefix
+        if j % K == 0:
+            ck_p[j // K] = list(st)
+        _model_insert(st, int(nxt[j]), s)
+    out = np.empty(s_b, dtype=np.int64)
+    counts = np.zeros(3, dtype=np.int64)        # merges, updates, changed
+    for m in range(n_seg):                      # kernel B, one chain each
+        suf, pre = list(ck_s[m]), list(ck_p[m])
+        th, ucnt, stale = RSENT, 0, True
+        for j in range(m * K, min(m * K + K, s_b)):
+            if stale:
+                th, stale = _model_merge(suf, pre, s), False
+                ucnt = len(set(suf) | set(pre))
+                counts[0] += 1
+            out[j] = th
+            x, e = int(cur[j]), int(ev[j])
+            s_chg = e != -1
+            if s_chg:                           # undo A's insert of x
+                suf.remove(x)
+                if e != RSENT:
+                    suf.append(e)
+            v = int(nxt[j])
+            p_out = _model_insert(pre, v, s)
+            p_chg = p_out != -1
+            counts[2] += s_chg or p_chg
+            s_low, p_low = s_chg and x <= th, p_chg and v <= th
+            if not (s_low or p_low):
+                continue
+            if th != RSENT and p_out == th:
+                stale = True
+                continue
+            th, ucnt = _model_step_theta(th, ucnt, suf, pre, x, s_low, v,
+                                         p_low, s_chg, s)
+            counts[1] += 1
+    return out, counts
+
+
+def _model_theta(cur, nxt, s, K):
+    rows = [_model_theta_row(c, n, s, K) for c, n in zip(cur, nxt)]
+    return (np.stack([r[0] for r in rows]).astype(np.int32),
+            sum(r[1] for r in rows))
+
+
+@pytest.mark.parametrize("seed,s,s_b,K,invalid_frac,alphabet", [
+    (10, 6, 100, 128, 0.1, None),    # S_B below K (the kernel's K)
+    (11, 9, 300, 128, 0.0, None),    # S_B not a multiple of K
+    (12, 5, 1, 32, 0.0, None),       # S_B = 1
+    (13, 1, 150, 32, 0.2, None),     # s = 1
+    (14, 30, 100, 32, 0.0, 20),      # s above the distinct count
+    (15, 3, 130, 32, 0.0, 4),        # 4-letter alphabet: long duplicate runs
+    (16, 7, 96, 32, 1.0, None),      # all-RSENT rows
+    (17, 10, 160, 64, 0.5, None),    # half RSENT
+    (18, 16, 256, 64, 0.02, None),   # S_B a multiple of K
+    (20, 8, 300, 32, 0.05, 40),      # alphabet near 2s: sets share values
+])
+def test_schedule_model_matches_ref_and_pallas(seed, s, s_b, K,
+                                               invalid_frac, alphabet):
+    """The kernel's two-kernel schedule, modelled on the CPU, equals the
+    plain version and the Pallas kernel (interpret mode) exactly, and
+    merges or updates theta at no more offsets than the segments' first
+    plus those where a set changed."""
+    cur, nxt = _blocks(seed, C_T, s, s_b, invalid_frac, alphabet)
+    got, (merges, updates, changed) = _model_theta(cur, nxt, s, K)
+    ref = tt.theta_chunk_ref(torch.from_numpy(cur), torch.from_numpy(nxt),
+                             s, s_b).numpy()
+    pallas = np.asarray(theta_chunk_pallas(
+        jnp.asarray(cur), jnp.asarray(nxt), s, s_b, interpret=True))
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, pallas)
+    assert merges + updates <= changed + C_T * -(-s_b // K)
+
+
+@pytest.mark.parametrize("seed,s,s_b,alphabet,invalid_frac", [
+    (0, 12, 60, 1000, 0.8), (0, 6, 40, 40, 0.8), (1, 8, 100, 30, 0.9)])
+def test_schedule_model_takes_every_step(monkeypatch, seed, s, s_b,
+                                         alphabet, invalid_frac):
+    """Sparse windows (about s valid ranks each), where theta's step
+    takes every outcome: to the predecessor, to the successor, down to
+    RSENT and back up from it, staying, and theta itself replaced."""
+    seen, model_step = set(), _model_step_theta
+
+    def step(th, ucnt, suf, pre, x, s_low, v, p_low, s_chg, s):
+        new, ucnt2 = model_step(th, ucnt, suf, pre, x, s_low, v, p_low,
+                                s_chg, s)
+        if th == RSENT:
+            seen.add("up from RSENT" if new != RSENT else "RSENT")
+        elif new == RSENT:
+            seen.add("down to RSENT")
+        elif x == th and s_low and x not in pre and new < th:
+            seen.add("replaced")
+        else:
+            seen.add("down" if new < th else "up" if new > th else "stay")
+        return new, ucnt2
+
+    monkeypatch.setattr(f"{__name__}._model_step_theta", step)
+    cur, nxt = _blocks(seed, C_T, s, s_b, invalid_frac, alphabet)
+    got, _ = _model_theta(cur, nxt, s, 32)
+    ref = tt.theta_chunk_ref(torch.from_numpy(cur), torch.from_numpy(nxt),
+                             s, s_b).numpy()
+    pallas = np.asarray(theta_chunk_pallas(
+        jnp.asarray(cur), jnp.asarray(nxt), s, s_b, interpret=True))
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, pallas)
+    assert seen == {"RSENT", "up from RSENT", "down to RSENT", "replaced",
+                    "down", "up", "stay"}
+
+
+@pytest.mark.parametrize("seed,s,s_b,alphabet", [
+    (24, 12, 300, None), (25, 5, 130, 8)])
+def test_schedule_model_on_contig_end_rows(seed, s, s_b, alphabet):
+    """A contig's last block row has no next block (nxt all RSENT), so
+    its last windows hold fewer than s distinct ranks and theta is RSENT
+    there: the model steps theta exactly in and out of RSENT."""
+    cur, _ = _blocks(seed, C_T, s, s_b, 0.05, alphabet)
+    nxt = np.full_like(cur, RSENT)
+    got, (merges, updates, changed) = _model_theta(cur, nxt, s, 64)
+    ref = tt.theta_chunk_ref(torch.from_numpy(cur), torch.from_numpy(nxt),
+                             s, s_b).numpy()
+    pallas = np.asarray(theta_chunk_pallas(
+        jnp.asarray(cur), jnp.asarray(nxt), s, s_b, interpret=True))
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, pallas)
+    assert (ref == RSENT).any()
+    assert merges == C_T * -(-s_b // 64)     # segment starts only
+
+
+@pytest.mark.parametrize("seed,s,alphabet", [
+    (19, 20, None), (21, 12, 30), (22, 2, 5), (23, 40, 90)])
+def test_schedule_model_on_longer_rows(seed, s, alphabet):
+    """Longer rows: on random ranks a set changes at a minority of
+    offsets, and full merges are fewer still."""
+    cur, nxt = _blocks(seed, 4, s, 2000, 0.02, alphabet)
+    got, (merges, updates, changed) = _model_theta(cur, nxt, s, tt.SEG_K)
+    ref = tt.theta_chunk_ref(torch.from_numpy(cur), torch.from_numpy(nxt),
+                             s, 2000).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert merges + updates <= changed + 4 * -(-2000 // tt.SEG_K)
+    if alphabet is None:
+        assert changed < 0.2 * cur.size
+        assert merges < 0.25 * changed
+
+
 def test_wrapper_rejects_bad_inputs():
     cur, nxt = _blocks(0, 2, 4, 16, 0.0)
     c, n = torch.from_numpy(cur), torch.from_numpy(nxt)
