@@ -7,8 +7,10 @@ Phases, in order; any failure propagates and exits non-zero:
 
 1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: the theta kernels (kernels/csrc/theta.cu) with nvcc for
-   sm_90a, and each instance's registers and spills from ptxas;
+2. build: the theta kernels (kernels/csrc/theta.cu), the banded DP kernel
+   (align/csrc/banded_dp.cu) and the native FASTA reader, all started
+   together; each kernel instance's registers and spills from ptxas, and
+   which FASTA reader loaded (native or Python);
 3. kernel against plain version: theta_chunk on the card equals
    theta_chunk_ref exactly at the listed shapes and invalid fractions
    and at the schedule's edges (CHECK_EDGES), then on the block rows of
@@ -20,13 +22,31 @@ Phases, in order; any failure propagates and exits non-zero:
    the rows and the kernel's output, not counts taken in the kernel);
    the record carries the bound from the bytes and int32 operations
    these rows need;
-4. main path: build_or_load_index + map_files on "cuda" with bench.py's
+4. [dp-check]: banded_dp on the card equals banded_dp_rows_torch exactly
+   over the whole (B, P+1, W) at each of the aligner's four buckets, on
+   random pieces (B=64, 0-30% divergence, both free_start values) and the
+   edge pieces (tests/test_torch_dp_pieces.py); [dp-time]: at B=512 per bucket, the
+   kernel's ms (median of 20, CUDA events), the plain version's ms, the
+   rows' device-to-host ms, and the bound;
+5. main path: build_or_load_index + map_files on "cuda" with bench.py's
    parameters on its 6 Mbp pangenome (4 x 1.5 Mbp), theta launches
    counted, and the reference's CI coverage gate (every sequence >= 0.92);
-   then a warm run with the same PAF, and one under torch.profiler
-   (device busy time and the top kernels of the build and the map);
-5. card against CPU: on a small pangenome the card's index arrays and PAF
-   bytes equal the port's own CPU run.
+   then four warm runs with the same PAF, alternately reading through
+   the native reader and the Python parser, and the two readers' time
+   on the FASTA alone; then one run under torch.profiler (device busy
+   time and the top kernels of the build and the map);
+6. card against CPU: on a small pangenome the card's index arrays and PAF
+   bytes equal the port's own CPU run;
+7. [cli]: `python -m mashmap_tpu_torch.cli` in a subprocess with
+   bench.py's flags gives the main path's PAF byte for byte; once more
+   with --legacy for the aligner;
+8. [align]: the aligner's main path, `align.cli.main` on the pangenome and
+   that legacy mapping at --pi 85 on "cuda", DP launches counted: rows,
+   pieces per bucket and to the host DP, the DP's device ms, the rows'
+   copy ms, host ms, wall s and aligned query Mbp/s; at least one output
+   row per query haplotype; then once more under torch.profiler;
+   [align-small]: on the small pangenome, its legacy mapping aligned on
+   the card and on the CPU gives the same bytes.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -34,6 +54,7 @@ rest of the repository beside it, the script fails before printing
 either.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -70,6 +91,15 @@ CHECK_EDGES = (
 # rate: 132 SMs x 64 int32 lanes x 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+DP_CHECK_B = 64
+DP_TIME_B = 512
+# int32 operations per DP cell that the recurrence needs, done one cell
+# after another: the substitution compare, the diag and up adds, their
+# min, the left move's add, its min, and the CAP saturation. The band's
+# and the row's masks are intervals of each row, fixed by loop bounds;
+# the scan's M - c and + c belong to one parallel form, not to the work.
+DP_OPS_PER_CELL = 7
 
 
 def coverage(paf_lines):
@@ -283,8 +313,8 @@ def print_ptxas(log):
         text = fh.read()
     name = None
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(theta_\w+?_kernel)"
-                      r"ILi(\d+)E", line)
+        m = re.search(r"Compiling entry function '\w*?"
+                      r"(theta_\w+?_kernel|banded_dp_kernel)ILi(\d+)E", line)
         if m:
             name, spill = f"{m.group(1)}<{m.group(2)}>", "spills not read"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -352,14 +382,45 @@ def theta_record(fa, p, device, kernel_reps=20, plain_reps=3):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+@contextlib.contextmanager
+def python_reader():
+    """io.fasta with its native route off: the pure-Python parser it
+    falls back to when the C++ reader cannot be built."""
+    from mashmap_tpu_torch import native
+    load = native._load_fastaread
+    native._load_fastaread = lambda: None
+    try:
+        yield
+    finally:
+        native._load_fastaread = load
+
+
+def reader_times(fa, reps=3):
+    """Seconds to read fa alone with the native reader and with the
+    Python parser, alternated; prints the median of reps each."""
+    from mashmap_tpu_torch.io import for_each_seq_in_file
+    times = {"native": [], "python": []}
+    for _ in range(reps):
+        for name, ctx in (("native", contextlib.nullcontext),
+                          ("python", python_reader)):
+            with ctx():
+                t0 = time.perf_counter()
+                bp = sum(len(seq) for _, seq in for_each_seq_in_file(fa))
+                times[name].append(time.perf_counter() - t0)
+    for name, ts in times.items():
+        print(f"[main] reader {name}: {bp} bp in {sorted(ts)[reps // 2]} s "
+              f"(median of {reps}: {ts})")
+
+
 def main_path(fa, device):
-    """bench.py's build + self-map through the port's entry points, twice:
-    the first run (cold: each CUDA kernel's first launch loads it) goes
+    """bench.py's build + self-map through the port's entry points: the
+    first run (cold: each CUDA kernel's first launch loads it) goes
     through map_files and is the one whose theta launches are counted and
-    whose PAF is gated; the second (warm, the steady state bench.py
-    reports) drives the Mapper that map_files builds, to read which
-    device and host routes ran, and must give the same PAF. Returns the
-    theta launches of the first run."""
+    whose PAF is gated; then warm runs (the steady state bench.py
+    reports) drive the Mapper that map_files builds, to read which device
+    and host routes ran, alternately with the native reader and the
+    Python parser, and must each give the same PAF. Returns the theta
+    launches of the first run and its PAF."""
     import torch
     from mashmap_tpu_torch.api import build_or_load_index, map_files
     from mashmap_tpu_torch.io import for_each_seq_in_file
@@ -376,7 +437,11 @@ def main_path(fa, device):
         torch.cuda.reset_peak_memory_stats(device)
         return v
 
-    def run(tag):
+    def run(tag, reader=contextlib.nullcontext):
+        with reader():
+            return run_once(tag)
+
+    def run_once(tag):
         out = os.path.join(DATA, f"smoke_main_{tag}.paf")
         p = params(fa, out)
         peak()
@@ -417,8 +482,14 @@ def main_path(fa, device):
     bad = {n: cov.get(n, 0.0) for n in names if cov.get(n, 0.0) < 0.92}
     if bad:
         raise AssertionError(f"coverage gate failed: {bad}")
-    if run("warm") != paf:
-        raise AssertionError("the warm run's PAF differs from the cold's")
+    for tag, reader in (("warm", contextlib.nullcontext),
+                        ("warm-python", python_reader),
+                        ("warm-2", contextlib.nullcontext),
+                        ("warm-python-2", python_reader)):
+        if run(tag, reader) != paf:
+            raise AssertionError(f"the {tag} run's PAF differs from the "
+                                 f"cold's")
+    reader_times(fa)
     # the cold run's one-off host set-up: the L1 cutoff table, which
     # the Mapper computes with SciPy and the process memoizes
     from mashmap_tpu_torch import stats
@@ -429,7 +500,7 @@ def main_path(fa, device):
     stats.sketch_cutoffs(p.sketch_size, p.kmer_size, p.ANIDiff,
                          p.ANIDiffConf, FIXED.ss_table_max)
     print(f"[main] set-up: cutoff table {time.perf_counter() - t0} s")
-    return launches
+    return launches, paf
 
 
 def profile_main_path(fa, device, top=12):
@@ -451,21 +522,26 @@ def profile_main_path(fa, device, top=12):
                 map_files(p, index=idx, device=device)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
-        # device-side events only (kernels, copies): the host ops that
-        # launched them carry the same time again
-        rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-                for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA")]
-        rows = sorted(r for r in rows if r[0] > 0)[::-1]
-        busy_ms = sum(r[0] for r in rows)
-        print(f"[profile] {phase}: wall {wall_ms} ms, device busy "
-              f"{busy_ms} ms, idle share "
-              f"{1 - busy_ms / wall_ms if rows else 'not measured'}")
-        for ms, n, key in rows[:top]:
-            print(f"[profile] {phase}:   {ms} ms x{n} {key[:90]}")
-        for ms, n, key in rows:
-            if "theta_" in key:
-                print(f"[profile] {phase}: theta {ms} ms x{n} {key[:40]}")
+        print_profile("[profile]", phase, prof, wall_ms, top, "theta_")
+
+
+def print_profile(tag, phase, prof, wall_ms, top, mark):
+    """Device busy time and idle share of a torch.profiler window, its
+    top kernels by device time, and the kernels whose name holds mark."""
+    # device-side events only (kernels, copies): the host ops that
+    # launched them carry the same time again
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    rows = sorted(r for r in rows if r[0] > 0)[::-1]
+    busy_ms = sum(r[0] for r in rows)
+    print(f"{tag} {phase}: wall {wall_ms} ms, device busy {busy_ms} ms, "
+          f"idle share {1 - busy_ms / wall_ms if rows else 'not measured'}")
+    for ms, n, key in rows[:top]:
+        print(f"{tag} {phase}:   {ms} ms x{n} {key[:90]}")
+    for ms, n, key in rows:
+        if mark in key:
+            print(f"{tag} {phase}: {mark} {ms} ms x{n} {key[:40]}")
 
 
 def card_vs_cpu(fa, device):
@@ -498,6 +574,233 @@ def card_vs_cpu(fa, device):
         raise AssertionError("the small workload mapped nothing")
 
 
+def check_dp(device):
+    """banded_dp against banded_dp_rows_torch on the card, exactly, over
+    the whole (B, P+1, W) at each bucket, on random and edge pieces;
+    returns the largest absolute difference (0)."""
+    import torch
+    from mashmap_tpu_torch.align import kernel as K
+    from mashmap_tpu_torch.align.driver import PIECE_BUCKETS
+    from test_torch_dp_pieces import dp_edge_pieces, dp_pieces
+    worst = 0
+    for P, W in PIECE_BUCKETS:
+        for kind, arrays in (("random", dp_pieces(P, W, DP_CHECK_B, P + W)),
+                             ("edges", dp_edge_pieces(P, W))):
+            t = K.dp_inputs(*arrays, device)
+            got = K.banded_dp(*t, p_len=P, width=W)
+            want = K.banded_dp_rows_torch(*t, p_len=P, width=W)
+            torch.cuda.synchronize()
+            err = max_abs_err(got.to(torch.int32), want.to(torch.int32))
+            print(f"[dp-check] P={P} W={W} {kind} B={t[0].shape[0]}: "
+                  f"max_abs_err={err} over {got.numel()} cells")
+            if err != 0 or not torch.equal(got.to(torch.int32),
+                                           want.to(torch.int32)):
+                raise AssertionError(
+                    f"banded_dp kernel disagrees with its plain version at "
+                    f"P={P} W={W} on {kind} pieces")
+            worst = max(worst, err)
+    return worst
+
+
+def dp_bound_ms(B, P, W, R):
+    """The least time the card could take for banded_dp on B pieces: the
+    inputs read once and the (B, P+1, W) uint16 rows written once, over
+    the HBM rate; DP_OPS_PER_CELL int32 operations per computed cell
+    (P rows of W, row 0 aside), over the int32 rate. Returns (ms, "bytes"
+    or "operations", bytes, operations)."""
+    n_bytes = B * (P + 1) * W * 2 + B * (P + R) + B * (3 * 4 + 1)
+    n_ops = DP_OPS_PER_CELL * B * P * W
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * n_ops / INT32_OPS_PER_S
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", n_bytes, n_ops)
+
+
+def dp_time(device, kernel_reps=20, plain_reps=3, copy_reps=3):
+    """Per bucket at B = DP_TIME_B random pieces: the kernel's ms (median
+    of kernel_reps by CUDA events), the plain version's ms, the rows'
+    device-to-host ms and the bound. Returns {(P, W): record}."""
+    import torch
+    from mashmap_tpu_torch.align import kernel as K
+    from mashmap_tpu_torch.align.driver import PIECE_BUCKETS
+    from test_torch_dp_pieces import dp_pieces
+    recs = {}
+    for P, W in PIECE_BUCKETS:
+        t = K.dp_inputs(*dp_pieces(P, W, DP_TIME_B, 7 * P + W), device)
+        out = {}
+        ms = time_ms(lambda: out.update(
+            got=K.banded_dp(*t, p_len=P, width=W)), kernel_reps)
+        plain_ms = time_ms(lambda: K.banded_dp_rows_torch(
+            *t, p_len=P, width=W), plain_reps, warmup=0)
+        d2h_ms = time_ms(lambda: out["got"].cpu(), copy_reps, warmup=0)
+        bound_ms, bound_by, n_bytes, n_ops = dp_bound_ms(
+            DP_TIME_B, P, W, t[1].shape[1])
+        print(f"[dp-time] P={P} W={W} B={DP_TIME_B}: kernel {ms} ms, "
+              f"plain {plain_ms} ms, rows to host {d2h_ms} ms; bound "
+              f"{bound_ms} ms by {bound_by} (bytes {n_bytes}, int32 "
+              f"operations {n_ops}); kernel/bound {ms / bound_ms}")
+        recs[(P, W)] = {"P": P, "W": W, "B": DP_TIME_B, "ms": ms,
+                        "plain_ms": plain_ms, "d2h_ms": d2h_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by}
+        del out, t
+        torch.cuda.empty_cache()
+    return recs
+
+
+def cli_phase(fa, api_paf):
+    """`python -m mashmap_tpu_torch.cli` in a subprocess with bench.py's
+    flags must write the API path's PAF byte for byte; then the same with
+    --legacy. Returns the legacy mapping's path."""
+    env = {**os.environ, "PYTHONPATH": HERE + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    outs = {}
+    for tag, extra in (("paf", []), ("legacy", ["--legacy"])):
+        out = os.path.join(DATA, f"smoke_cli.{tag}")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "mashmap_tpu_torch.cli", "-r", fa,
+             "-s", "5000", "-k", "19", "--pi", "85", "-Y", "#", "-n", "1",
+             "-o", out, *extra], cwd=HERE, env=env, capture_output=True,
+            text=True, timeout=600)
+        if r.returncode != 0:
+            raise RuntimeError(f"the CLI ({tag}) failed:\n{r.stderr[-3000:]}")
+        meter = [ln for ln in r.stderr.splitlines() if "::map] mapped" in ln]
+        with open(out) as fh:
+            outs[tag] = fh.read()
+        print(f"[cli] {tag}: {time.perf_counter() - t0} s, "
+              f"{outs[tag].count(chr(10))} rows, meter lines {len(meter)}: "
+              f"{meter[-1] if meter else 'none'}")
+    if outs["paf"] != api_paf:
+        raise AssertionError("the CLI's PAF differs from the API path's")
+    print("[cli] PAF == the API path's PAF, byte for byte")
+    return os.path.join(DATA, "smoke_cli.legacy")
+
+
+def _align_run(fa, mapping, out, device):
+    """align.cli.main at --pi 85; returns (AlignStats, wall s), the stats
+    read from align_files' summary log record."""
+    import logging
+    from mashmap_tpu_torch.align import cli as align_cli
+    got = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            if hasattr(record, "align_stats"):
+                got.append(record.align_stats)
+
+    log = logging.getLogger("mashmap_tpu_torch.align")
+    h = Grab()
+    log.addHandler(h)
+    level = log.level
+    log.setLevel(logging.INFO)
+    try:
+        t0 = time.perf_counter()
+        rc = align_cli.main(["-s", fa, "-q", fa, "--mappingFile", mapping,
+                             "--pi", "85", "-o", out], device=device)
+        wall = time.perf_counter() - t0
+    finally:
+        log.removeHandler(h)
+        log.setLevel(level)
+    if rc != 0 or len(got) != 1:
+        raise AssertionError(f"align.cli.main returned {rc} with "
+                             f"{len(got)} summaries")
+    return got[0], wall
+
+
+def align_phase(fa, mapping, device, names):
+    """The aligner's main path on the card, DP launches counted; returns
+    (launches, stats)."""
+    from mashmap_tpu_torch.align import kernel as K
+    out = os.path.join(DATA, "smoke_align.aln")
+    with open(mapping) as fh:
+        rows = [ln.split() for ln in fh if ln.strip()]
+    q_bp = sum(int(f[3]) - int(f[2]) + 1 for f in rows)
+    K.LAUNCHES = 0
+    st, wall = _align_run(fa, mapping, out, device)
+    launches = K.LAUNCHES
+    host_ms = 1e3 * (st.anchor_s + st.traceback_s + st.host_dp_s)
+    print(f"[align] rows in {st.rows_in}, rows out {st.rows_out}, pieces "
+          f"per bucket {st.pieces}, pieces to the host DP "
+          f"{st.host_pieces}, DP launches {launches} (calls "
+          f"{st.dp_calls})")
+    print(f"[align] DP kernel device {st.dp_ms} ms, rows to host "
+          f"{st.d2h_ms} ms, host {host_ms} ms (anchors "
+          f"{1e3 * st.anchor_s}, traceback {1e3 * st.traceback_s}, host DP "
+          f"{1e3 * st.host_dp_s}), wall {wall} s, aligned query "
+          f"{q_bp} bp, {q_bp / 1e6 / wall} Mbp/s")
+    if launches <= 0:
+        raise AssertionError("the aligner's main path launched no DP kernel")
+    with open(out) as fh:
+        got = {ln.split()[0] for ln in fh if ln.strip()}
+    missing = [n for n in names if n not in got]
+    if missing:
+        raise AssertionError(f"no alignment row for queries {missing}")
+    return launches, st
+
+
+def profile_align(fa, mapping, device, top=12):
+    """The aligner's main path once more under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _align_run(fa, mapping, os.path.join(DATA, "smoke_align_prof.aln"),
+                   device)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    print_profile("[align-profile]", "align", prof, wall_ms, top,
+                  "banded_dp")
+
+
+def align_small(fa, device):
+    """The small pangenome's legacy mapping (on the card) aligned on the
+    card and on the CPU: the same bytes, at least one row."""
+    import torch
+    from mashmap_tpu_torch import cli
+    mapping = os.path.join(DATA, "smoke_small.legacy")
+    cli.main(["-r", fa, "--pi", "85", "-Y", "#", "-n", "1", "--legacy",
+              "--noProgress", "-o", mapping], device=device)
+    outs = {}
+    for dev in (device, torch.device("cpu")):
+        out = os.path.join(DATA, f"smoke_small_{dev.type}.aln")
+        st, wall = _align_run(fa, mapping, out, dev)
+        with open(out, "rb") as fh:
+            outs[dev.type] = fh.read()
+        print(f"[align-small] {dev.type}: {st.rows_out} of {st.rows_in} "
+              f"rows, pieces {st.pieces}, host DP {st.host_pieces}, wall "
+              f"{wall} s")
+    if outs[device.type] != outs["cpu"]:
+        raise AssertionError("the card's alignment differs from the CPU's")
+    rows = outs["cpu"].count(b"\n")
+    if rows == 0:
+        raise AssertionError("the small workload aligned nothing")
+    print(f"[align-small] {device.type} == cpu: {rows} rows, "
+          f"{len(outs['cpu'])} bytes")
+
+
+def build_all():
+    """Build the theta and banded DP kernels and the native FASTA reader,
+    all started together (each build is its own nvcc or g++ process);
+    print the time, each kernel instance's registers and spills, and
+    which reader loaded."""
+    from concurrent.futures import ThreadPoolExecutor
+    from mashmap_tpu_torch import native
+    from mashmap_tpu_torch.align import kernel as dp
+    from mashmap_tpu_torch.kernels import theta
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as ex:
+        jobs = [ex.submit(theta.load_library), ex.submit(dp.load_library),
+                ex.submit(native.native_available)]
+        have_native = [j.result() for j in jobs][-1]
+    print(f"[build] theta.cu, banded_dp.cu and the native reader built and "
+          f"loaded in {time.perf_counter() - t0} s")
+    print_ptxas(theta.ptxas_log_path())
+    print_ptxas(dp.ptxas_log_path())
+    print(f"[build] FASTA reader: "
+          f"{'native (C++)' if have_native else 'Python'}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -505,7 +808,7 @@ def main():
         return 1
     sys.path.insert(0, HERE)
     sys.path.insert(0, os.path.join(HERE, "tests"))
-    from mashmap_tpu_torch.kernels import theta
+    from mashmap_tpu_torch.io import for_each_seq_in_file
     device = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -520,31 +823,53 @@ def main():
           f"devices {torch.cuda.device_count()}")
 
     # 2. build
-    t0 = time.perf_counter()
-    theta.load_library()
-    print(f"[build] theta.cu built and loaded in "
-          f"{time.perf_counter() - t0} s")
-    print_ptxas(theta.ptxas_log_path())
+    build_all()
 
-    # 3. kernel against plain version, then times on the main path's rows
+    # 3. theta against its plain version, then times on the main path's rows
     fa_main = fasta(N_HAP, HAP_LEN, DIVERGENCE, SEED)
     fa_small = fasta(*SMALL)
     err = check_theta(device)
     rec = theta_record(fa_main, params(fa_main, os.devnull), device)
 
-    # 4. main path, then once more under the profiler
-    launches = main_path(fa_main, device)
+    # 4. the banded DP against its plain version, then times per bucket
+    dp_err = check_dp(device)
+    dp_recs = dp_time(device)
+
+    # 5. main path, then once more under the profiler
+    launches, paf = main_path(fa_main, device)
     profile_main_path(fa_main, device)
 
-    # 5. card against CPU
+    # 6. card against CPU
     card_vs_cpu(fa_small, device)
+
+    # 7. the mapper's CLI
+    legacy = cli_phase(fa_main, paf)
+
+    # 8. the aligner's main path, its profile, and card against CPU
+    names = [name for name, _ in for_each_seq_in_file(fa_main)]
+    dp_launches, st = align_phase(fa_main, legacy, device, names)
+    profile_align(fa_main, legacy, device)
+    align_small(fa_small, device)
 
     rec = {"name": rec.pop("name"), "route": rec.pop("route"),
            "source": rec.pop("source"), "replaces": rec.pop("replaces"),
            "launches": launches,
            "max_abs_err": max(err, rec.pop("max_abs_err")), **rec}
+    # the banded DP's top-level times are those of the bucket that took
+    # the most pieces on the aligner's main path; "buckets" has all four
+    top = max(dp_recs, key=lambda b: st.pieces.get(b, 0))
+    dp_rec = {"name": "banded_dp", "route": "cuda",
+              "source": "mashmap_tpu_torch/align/csrc/banded_dp.cu",
+              "replaces": "mashmap_tpu/align/kernel.py:48 (jit lax.scan, "
+                          "not Pallas)",
+              "launches": dp_launches, "max_abs_err": dp_err,
+              "ms": dp_recs[top]["ms"],
+              "plain_ms": dp_recs[top]["plain_ms"],
+              "bound_ms": dp_recs[top]["bound_ms"],
+              "bound_by": dp_recs[top]["bound_by"], "library_ms": None,
+              "bucket": list(top), "buckets": list(dp_recs.values())}
     print(f"[done] {time.perf_counter() - t_start} s")
-    print(json.dumps({"kernels": [rec]}))
+    print(json.dumps({"kernels": [rec, dp_rec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

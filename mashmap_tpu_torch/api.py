@@ -54,36 +54,56 @@ def map_files(params: Parameters,
               device=None) -> ReferenceIndex:
     """Run the full pipeline; returns the index (reusable)."""
     device = resolve_device(device)
-    if (params.num_processes or 1) > 1:
+    if (params.shard_index or params.coordinator
+            or (params.num_processes or 1) > 1
+            or (params.process_id or 0) != 0):
         raise NotImplementedError(
-            "multi-process mapping is not ported yet; run one process")
+            "multi-process and sharded-index runs (--shardIndex, "
+            "--coordinator, --numProcesses, --processId) wait for the "
+            "port's parallel/ slice; run one process on one device")
     params.finalize()
-    if index is None:
-        index = build_or_load_index(params, device)
-    if params.load_index_filename and (
-            index.kmer_size != params.kmer_size
-            or index.window_size != params.seg_length
-            or index.sketch_size != params.sketch_size):
-        # the npz stores the build parameters; adopt them instead of
-        # silently mixing sketch domains
-        logger.warning(
-            "loaded index was built with k=%d w=%d s=%d; overriding "
-            "the CLI-derived k=%d w=%d s=%d",
-            index.kmer_size, index.window_size, index.sketch_size,
-            params.kmer_size, params.seg_length, params.sketch_size)
-        if params.block_length == params.seg_length:
-            params.block_length = index.window_size
-        if params.chain_gap == params.seg_length:
-            params.chain_gap = index.window_size
-        params.kmer_size = index.kmer_size
-        params.seg_length = index.window_size
-        params.sketch_size = index.sketch_size
-    mapper = Mapper(params, index, device)
-    t0 = time.time()
-    if params.out_file_name == "-":
-        mapper.run(params.query_sequences, sys.stdout)
-    else:
-        with open(params.out_file_name, "w") as out:
-            mapper.run(params.query_sequences, out)
+    # start reading the query stream NOW, so its I/O + decompression
+    # overlap the index build/load; a bounded queue caps memory for
+    # arbitrarily large query sets
+    reader = None
+    if params.query_sequences:
+        from .io.fasta import PrefetchReader
+        reader = PrefetchReader(params.query_sequences)
+    # one guarded region from here through mapper.run: ANY failure
+    # (index build, device OOM, mapping itself) must close the
+    # non-daemon reader thread, or the process hangs at exit blocked on
+    # the full queue instead of propagating the error
+    try:
+        if index is None:
+            index = build_or_load_index(params, device)
+        if params.load_index_filename and (
+                index.kmer_size != params.kmer_size
+                or index.window_size != params.seg_length
+                or index.sketch_size != params.sketch_size):
+            # the npz stores the build parameters; adopt them instead of
+            # silently mixing sketch domains
+            logger.warning(
+                "loaded index was built with k=%d w=%d s=%d; overriding "
+                "the CLI-derived k=%d w=%d s=%d",
+                index.kmer_size, index.window_size, index.sketch_size,
+                params.kmer_size, params.seg_length, params.sketch_size)
+            if params.block_length == params.seg_length:
+                params.block_length = index.window_size
+            if params.chain_gap == params.seg_length:
+                params.chain_gap = index.window_size
+            params.kmer_size = index.kmer_size
+            params.seg_length = index.window_size
+            params.sketch_size = index.sketch_size
+        mapper = Mapper(params, index, device)
+        t0 = time.time()
+        if params.out_file_name == "-":
+            mapper.run(params.query_sequences, sys.stdout, reader=reader)
+        else:
+            with open(params.out_file_name, "w") as out:
+                mapper.run(params.query_sequences, out, reader=reader)
+    except BaseException:
+        if reader is not None:
+            reader.close()
+        raise
     logger.info("mapping done in %.2fs", time.time() - t0)
     return index

@@ -24,63 +24,36 @@ row would leave each row's dependent chain to set the time.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 
 import numpy as np
 import torch
+
+from . import nvcc
 
 RSENT = int(np.iinfo(np.int32).max)  # "+inf" rank
 S_MAX = 512                           # 16 register slots per lane
 
 LAUNCHES = 0                          # kernel launches (not ref calls)
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_HERE, "csrc", "theta.cu")
-_BUILD = os.path.join(os.path.dirname(_HERE), "_build")
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                    "theta.cu")
 _LIB = None
-
-
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-                 "/usr/local/cuda/bin/nvcc"):
-        if os.path.isfile(cand):
-            return cand
-    return "nvcc"
 
 
 def ptxas_log_path() -> str:
     """Where load_library keeps nvcc's -Xptxas -v report (registers,
     spills and shared memory of each kernel instance) of this source."""
-    with open(_SRC, "rb") as fh:
-        tag = hashlib.sha1(fh.read()).hexdigest()[:12]
-    return os.path.join(_BUILD, f"libtheta_{tag}.ptxas.txt")
+    return nvcc.ptxas_log_path(_SRC, "theta")
 
 
 def load_library():
     """Build csrc/theta.cu with nvcc (once per source version) and load
-    it. The library name carries a hash of the source, so an edited
-    source never loads a stale build."""
+    it."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    log = ptxas_log_path()
-    so = log[:-len(".ptxas.txt")] + ".so"
-    os.makedirs(_BUILD, exist_ok=True)
-    if not os.path.exists(so):
-        tmp = f"{so}.{os.getpid()}.tmp"
-        res = subprocess.run(
-            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-             "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
-             "-Xcompiler", "-fPIC", "-o", tmp, _SRC],
-            capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{res.stderr}")
-        with open(log, "w") as fh:
-            fh.write(res.stderr)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
+    lib = ctypes.CDLL(nvcc.build(_SRC, "theta"))
     lib.theta_chunk_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
+import sys
 import time
 from typing import IO, List, Optional, Sequence, Tuple
 
@@ -75,6 +77,7 @@ class _Query:
     qg: int = -1            # reference prefix group
     n_frags: int = 0
     done: int = 0
+    counted: int = 0        # bp already credited to the progress meter
     rows: object = None     # per-ordinal [(fragment, rows)]
 
 
@@ -782,18 +785,27 @@ class Mapper:
         return out
 
     # ------------------------------------------------------------------
-    def _run_batched(self, queries, out: IO[str]) -> None:
+    def _run_batched(self, queries, out: IO[str], meter=None) -> None:
         """Streaming device mapping, one batch at a time.
 
         Fragments stream into fixed-size batches; a query's fragments may
         land in different batches, so per-query rows accumulate on the
         _Query and each query finalizes — merge/filter/emit, in input
-        order — once its last fragment is delivered.
+        order — once its last fragment is delivered. Each delivered
+        fragment credits its bases to the meter.
         """
         import collections
         p = self.p
         finalq: collections.deque = collections.deque()
         cur: list = []
+
+        def credit(q, fr):
+            if meter is None:
+                return
+            inc = min(fr.q_len, len(q.seq) - q.counted)
+            if inc > 0:
+                meter.increment(inc)
+                q.counted += inc
 
         def run_batch():
             nonlocal cur
@@ -806,6 +818,7 @@ class Mapper:
             for fr, rows in self._post_batch(ctx):
                 fr.q.rows[fr.ord] = (fr, rows)
                 fr.q.done += 1
+                credit(fr.q, fr)
             while finalq and finalq[0].done == finalq[0].n_frags:
                 q = finalq.popleft()
                 self._emit(q, self._postprocess_query(q, q.rows), out)
@@ -827,34 +840,62 @@ class Mapper:
         assert not finalq, "batched path left unfinished queries"
 
     def run(self, query_files: Sequence[str], out: IO[str],
-            progress: Optional[bool] = None) -> None:
+            progress: Optional[bool] = None, reader=None) -> None:
         """Full mapQuery equivalent: stream files, map, write output.
-        (No progress meter is painted; ``progress`` is accepted for
-        parity with the JAX package.)"""
-        from ..io import for_each_seq_in_file
+
+        ``reader`` (io.fasta.PrefetchReader) supplies the same
+        (name, seq) stream as iterating ``query_files`` in order, but
+        from a thread that started during the index build. Unless
+        ``progress`` is False (default: ``not no_progress``), a meter on
+        stderr counts the mapped bases."""
+        from ..io import for_each_seq_in_file, total_seq_stats
+        from ..progress import ProgressMeter
         p = self.p
         t0 = time.time()
+
+        if progress is None:
+            # the reference always paints its meter to stderr
+            # (progress.hpp:25-38); --noProgress is the opt-out
+            progress = not p.no_progress
+        meter = None
+        if progress:
+            # reference sizes its meter from the .fai / a pre-scan
+            # (computeMap.hpp:279-304). For non-tty stderr (piped /
+            # captured) skip the pre-scan unless .fai files make sizing
+            # free; the meter then runs unsized.
+            if (sys.stderr.isatty()
+                    or all(os.path.exists(f + ".fai") for f in query_files)):
+                _, total_bp = total_seq_stats(query_files)
+            else:
+                total_bp = 0
+            meter = ProgressMeter(total_bp, "[mashmap-tpu-torch::map] mapped")
+
+        def name_seq_stream():
+            if reader is not None:
+                yield from reader
+            else:
+                for fname in query_files:
+                    yield from for_each_seq_in_file(fname)
 
         def owned_queries():
             """Queries in file order, maintaining the global counters and
             one-to-one metadata."""
-            for fname in query_files:
-                for name, seq in for_each_seq_in_file(fname):
-                    qlen = len(seq)
-                    if p.filter_mode == FILTER_ONETOONE:
-                        self.qmetadata.append((name, qlen))
-                    if qlen >= p.kmer_size:
-                        self.total_reads_picked += 1
-                        yield _Query(name, seq, self.total_seq_counter)
-                    else:
-                        logger.warning(
-                            "read %s of %dbp is not long enough for "
-                            "mapping", name, qlen)
-                    self.total_seq_counter += 1
-                    self.total_bp += qlen
+            for name, seq in name_seq_stream():
+                qlen = len(seq)
+                if p.filter_mode == FILTER_ONETOONE:
+                    self.qmetadata.append((name, qlen))
+                if qlen >= p.kmer_size:
+                    self.total_reads_picked += 1
+                    yield _Query(name, seq, self.total_seq_counter)
+                else:
+                    logger.warning(
+                        "read %s of %dbp is not long enough for "
+                        "mapping", name, qlen)
+                self.total_seq_counter += 1
+                self.total_bp += qlen
 
         if p.use_device_pipeline and p.split:
-            self._run_batched(owned_queries(), out)
+            self._run_batched(owned_queries(), out, meter)
         else:
             pending: List[_Query] = []
             pending_frags = 0
@@ -863,6 +904,8 @@ class Mapper:
                 nonlocal pending, pending_frags
                 for qq, rows in self.map_queries(pending):
                     self._emit(qq, rows, out)
+                    if meter is not None:
+                        meter.increment(len(qq.seq))
                 pending = []
                 pending_frags = 0
 
@@ -873,6 +916,8 @@ class Mapper:
                     flush()
             if pending:
                 flush()
+        if meter is not None:
+            meter.finish()
 
         if p.filter_mode == FILTER_ONETOONE:
             self._finish_one_to_one(out)

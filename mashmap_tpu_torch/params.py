@@ -114,9 +114,14 @@ class Parameters:
     threads: int = 1                          # host-side parallelism only
 
     # --- device-side knobs (no reference analog) ---
-    # this port runs one process: api.map_files raises on more
+    # multi-process and sharded-index runs (the JAX package's parallel/)
+    # parse but are not ported: api.map_files raises on them
+    coordinator: Optional[str] = None
     num_processes: Optional[int] = None
-    no_progress: bool = False       # no progress meter is painted yet
+    process_id: Optional[int] = None
+    shard_index: bool = False
+    no_progress: bool = False       # reference always paints its meter
+    # (progress.hpp:25-38); this flag is the opt-out
     batch_fragments: int = 512      # fragments per device batch
     use_device_pipeline: bool = True
     l1_postings_cap: int = 1024     # max gathered intervals per fragment

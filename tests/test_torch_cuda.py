@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the hand-written theta kernel against its plain
-version, and the card's index build against the CPU's.
+"""The port on a CUDA card: the hand-written theta and banded DP kernels
+against their plain versions, and the card's index build and alignments
+against the CPU's.
 
 These tests need a card and skip without one. The card's machine has no
 JAX, so run them there without the JAX-importing conftest:
@@ -14,11 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+from mashmap_tpu_torch.align import kernel as dp
+from mashmap_tpu_torch.align.driver import PIECE_BUCKETS
 from mashmap_tpu_torch.index import builder
 from mashmap_tpu_torch.kernels import theta as tt
 
 sys.path.insert(0, os.path.dirname(__file__))
-from genomes import pangenome  # noqa: E402
+from genomes import mutate, pangenome, random_genome, write_fasta  # noqa
+from test_torch_dp_pieces import dp_edge_pieces, dp_pieces  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +90,41 @@ def test_card_index_equals_cpu_index(cuda):
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
                                       err_msg=f)
     assert a.freq_threshold == b.freq_threshold
+
+
+@pytest.mark.parametrize("P,W", PIECE_BUCKETS)
+@pytest.mark.parametrize("kind", ["random", "edges"])
+def test_dp_kernel_matches_plain_version(cuda, P, W, kind):
+    """The banded DP kernel equals banded_dp_rows_torch over the whole
+    (B, P+1, W) at each of the aligner's buckets."""
+    arrays = (dp_pieces(P, W, 64, P + W) if kind == "random"
+              else dp_edge_pieces(P, W))
+    t = dp.dp_inputs(*arrays, cuda)
+    before = dp.LAUNCHES
+    got = dp.banded_dp(*t, p_len=P, width=W)
+    torch.cuda.synchronize()
+    assert dp.LAUNCHES == before + 1
+    assert got.dtype == torch.uint16 and got.device.type == "cuda"
+    want = dp.banded_dp_rows_torch(*t, p_len=P, width=W)
+    assert torch.equal(got.to(torch.int32), want.to(torch.int32))
+
+
+def test_aligner_card_equals_cpu(cuda, tmp_path):
+    from mashmap_tpu_torch.align.driver import align_files
+    from mashmap_tpu_torch.cli import main as map_main
+    base = random_genome(30000, seed=5)
+    ref, qf = str(tmp_path / "ref.fa"), str(tmp_path / "q.fa")
+    write_fasta(ref, [("chr1", base)])
+    write_fasta(qf, [("q1", mutate(base, 0.05, seed=6))])
+    mp = str(tmp_path / "map.out")
+    assert map_main(["-r", ref, "-q", qf, "-o", mp, "-k", "15", "-s",
+                     "1000", "-J", "60", "--pi", "80", "--legacy",
+                     "--noProgress"], device=cuda) == 0
+    before = dp.LAUNCHES
+    outs = []
+    for dev in (cuda, "cpu"):
+        out = str(tmp_path / f"{dev}.aln")
+        align_files([ref], [qf], mp, 80.0, out, device=dev)
+        outs.append(open(out).read())
+    assert dp.LAUNCHES > before
+    assert outs[0] and outs[0] == outs[1]

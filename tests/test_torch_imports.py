@@ -42,7 +42,10 @@ def test_no_module_imports_jax_or_the_jax_package():
 def test_port_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['mashmap_tpu'] = None; "
-            "import mashmap_tpu_torch.api, mashmap_tpu_torch.map.engine; "
+            "import mashmap_tpu_torch.api, mashmap_tpu_torch.map.engine, "
+            "mashmap_tpu_torch.cli, mashmap_tpu_torch.align.driver, "
+            "mashmap_tpu_torch.align.cli, mashmap_tpu_torch.native, "
+            "mashmap_tpu_torch.progress; "
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "for m in sys.modules if sys.modules[m] is not None)")
     env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep
@@ -73,3 +76,27 @@ def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
         build_index([("c", "ACGT" * 300)], 11, 500, 8)
     assert not (tmp_path / "o").exists()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cli_entry_points_default_to_cuda(tmp_path, monkeypatch):
+    """The mapper CLI, the aligner CLI and align_files ask for CUDA
+    without a device argument and raise on a host without it."""
+    import torch
+    from mashmap_tpu_torch import cli
+    from mashmap_tpu_torch.align import cli as align_cli
+    from mashmap_tpu_torch.align.driver import align_files
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fa = tmp_path / "r.fa"
+    fa.write_text(">c\n" + "ACGT" * 300 + "\n")
+    mp = tmp_path / "m.out"
+    mp.write_text("c 1200 0 1199 + c 1200 0 1199 100.0\n")
+    out = str(tmp_path / "o")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["-r", str(fa), "--noProgress", "-o", out])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        align_cli.main(["-s", str(fa), "-q", str(fa), "--mappingFile",
+                        str(mp), "--pi", "80", "-o", out])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        align_files([str(fa)], [str(fa)], str(mp), 80.0, out)
+    assert not (tmp_path / "o").exists()
