@@ -46,9 +46,25 @@ Phases, in order; any failure propagates and exits non-zero:
    copy ms, host ms, wall s and aligned query Mbp/s; at least one output
    row per query haplotype; then once more under torch.profiler;
    [align-small]: on the small pangenome, its legacy mapping aligned on
-   the card and on the CPU gives the same bytes.
+   the card and on the CPU gives the same bytes;
+9. the parallel layer, on the card listed twice: [shard] the main path's
+   pangenome through a Mapper with shard_index and devices
+   [cuda:0, cuda:0] (two shards asserted), PAF == the main path's,
+   build and map s, bytes per shard, path_stats, peak device memory;
+   [mesh] the same with the replicated index, PAF == the main path's;
+   [dist] two processes of the CLI meeting at a coordinator on
+   127.0.0.1, in the default mode and in -f one-to-one, the merged PAF
+   == the single-process CLI's, no part files left, wall s;
+10. [overlimit]: one random contig of OVERLIMIT_BP (just over the default
+   rank limit of 2^28 positions) built through the host route at the
+   default limit and through the device route at 2^30: every index
+   array equal; both build times, peak device memory, and the host
+   route's theta launches.
 
-The line before the last is the kernels' JSON record; the last line is
+Each path's theta launches are counted from 0 just before it is driven
+and read just after; a path that launched none fails the run. The line
+before the last is the kernels' JSON record (theta's "launches" are the
+main path's, "launches_by_path" those of every path); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 rest of the repository beside it, the script fails before printing
 either.
@@ -57,6 +73,7 @@ either.
 import contextlib
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -69,6 +86,8 @@ N_HAP, HAP_LEN, DIVERGENCE, SEED = 4, 1_500_000, 0.05, 2024
 SMALL = (3, 200_000, 0.05, 7)
 PI = 0.85
 BATCH = 1024
+# one contig just over the default rank limit of 2^28 k-mer positions
+OVERLIMIT_BP = 270_000_000
 
 # theta kernel against its plain version: (C, S_B, s) x RSENT fraction,
 # on ranks drawn from [0, 4 * S_B)
@@ -779,6 +798,199 @@ def align_small(fa, device):
           f"{len(outs['cpu'])} bytes")
 
 
+def peak_bytes(device):
+    """Peak device bytes since the last call."""
+    import torch
+    v = torch.cuda.max_memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    return v
+
+
+def two_entry_phase(tag, fa, device, want_paf, shard, reps=2):
+    """The main path's pangenome through a Mapper on [device, device]:
+    the index split in two shards (shard=True) or replicated with the
+    batches split in two blocks. Each run's PAF must equal the main
+    path's; returns the theta launches of the build."""
+    import torch
+    from mashmap_tpu_torch.api import build_or_load_index
+    from mashmap_tpu_torch.kernels import theta
+    from mashmap_tpu_torch.map.engine import Mapper
+    devices = [device, device]
+    for rep in range(reps):
+        out = os.path.join(DATA, f"smoke_{tag[1:-1]}_{rep}.paf")
+        p = params(fa, out)
+        p.shard_index = shard
+        peak_bytes(device)
+        theta.LAUNCHES = 0
+        t0 = time.perf_counter()
+        idx = build_or_load_index(p, device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = theta.LAUNCHES
+        build_peak = peak_bytes(device)
+        mapper = Mapper(p, idx, devices=devices)
+        with open(out, "w") as fh:
+            mapper.run(p.query_sequences, fh)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if shard:
+            si = mapper._sharded
+            if si is None or si.n_shards != 2:
+                raise AssertionError(f"{tag} the index was not split in "
+                                     f"two shards")
+            layout = (f"n_shards={si.n_shards} p_shard={si.p_shard} "
+                      f"gather cap a shard={min(si.p_shard, p.l1_postings_cap)} "
+                      f"bytes per shard={si.shard_bytes()}")
+        else:
+            if mapper._sharded is not None or len(mapper.devices) != 2:
+                raise AssertionError(f"{tag} not the replicated 2-block path")
+            layout = f"devices={[str(d) for d in mapper.devices]}"
+        with open(out) as fh:
+            paf = fh.read()
+        print(f"{tag} run {rep}: build_s={t1 - t0} map_s={t2 - t1} "
+              f"theta_launches={launches} {layout}")
+        print(f"{tag} run {rep}: path_stats={mapper.path_stats} "
+              f"max_memory_allocated build={build_peak} "
+              f"map={peak_bytes(device)}")
+        if launches <= 0:
+            raise AssertionError(f"{tag} the build launched no theta kernel")
+        if paf != want_paf:
+            raise AssertionError(f"{tag} PAF differs from the main path's")
+    print(f"{tag} PAF == the main path's PAF, byte for byte")
+    return launches
+
+
+# one process of the port's CLI; reports its theta launches on stderr
+DIST_RUN = ("import sys; from mashmap_tpu_torch import cli; "
+            "from mashmap_tpu_torch.kernels import theta; "
+            "rc = cli.main(sys.argv[1:]); "
+            "print(f'[dist-proc] theta_launches={theta.LAUNCHES}', "
+            "file=sys.stderr); sys.exit(rc)")
+
+
+def dist_phase(fa, cli_paf, device):
+    """Two processes of the CLI on the card, meeting at a coordinator on
+    127.0.0.1, in the default mode and in -f one-to-one: the merged PAF
+    equals the single-process CLI's (the [cli] phase's for the default
+    mode, cli.main in this process for one-to-one), and no part file is
+    left. Returns each process's theta launches."""
+    from mashmap_tpu_torch import cli
+    env = {**os.environ, "PYTHONPATH": HERE + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    flags = ["-r", fa, "-s", "5000", "-k", "19", "--pi", "85", "-Y", "#",
+             "-n", "1", "--noProgress"]
+    launches = []
+    for mode, extra in (("map", []), ("one-to-one", ["-f", "one-to-one"])):
+        if mode == "map":
+            want = cli_paf
+        else:
+            single = os.path.join(DATA, "smoke_dist_single.o2o")
+            cli.main(flags + extra + ["-o", single], device=device)
+            with open(single) as fh:
+                want = fh.read()
+        out = os.path.join(DATA, f"smoke_dist.{mode}")
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            coord = f"127.0.0.1:{sk.getsockname()[1]}"
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", DIST_RUN, *flags, *extra, "-o", out,
+             "--coordinator", coord, "--numProcesses", "2",
+             "--processId", str(pid)], cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for pid in range(2)]
+        try:
+            errs = [pr.communicate(timeout=600)[1] for pr in procs]
+        finally:
+            for pr in procs:
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.wait()
+        wall = time.perf_counter() - t0
+        for pid, (pr, err) in enumerate(zip(procs, errs)):
+            if pr.returncode != 0:
+                raise RuntimeError(f"[dist] {mode} process {pid} failed:\n"
+                                   f"{err[-3000:]}")
+            n = [int(ln.split("=")[1]) for ln in err.splitlines()
+                 if ln.startswith("[dist-proc] theta_launches=")]
+            if not n or n[0] <= 0:
+                raise AssertionError(f"[dist] {mode} process {pid} "
+                                     f"launched no theta kernel")
+            launches.append(n[0])
+        with open(out) as fh:
+            got = fh.read()
+        parts = [f for f in os.listdir(DATA) if ".part" in f]
+        print(f"[dist] {mode}: 2 processes, wall {wall} s, "
+              f"{got.count(chr(10))} rows, theta launches "
+              f"{launches[-2:]}, part files left {parts}")
+        if parts:
+            raise AssertionError(f"[dist] part files left: {parts}")
+        if got != want:
+            raise AssertionError(f"[dist] {mode}: merged PAF differs from "
+                                 f"the single-process CLI's")
+        print(f"[dist] {mode}: merged PAF == the single-process CLI's, "
+              f"byte for byte")
+    return launches
+
+
+def overlimit_phase(device, n_bp=OVERLIMIT_BP):
+    """One random contig of n_bp bases, over the default rank limit:
+    built through the host route at the default limit (theta launches
+    counted) and through the device route at 2^30, at the sketch size
+    the CLI derives for a reference of that size at --pi 85. Every
+    index array must be equal. Returns the host route's theta
+    launches."""
+    import numpy as np
+    import torch
+    from genomes import random_genome
+    from mashmap_tpu_torch.index import builder
+    from mashmap_tpu_torch.kernels import theta
+    from mashmap_tpu_torch.params import Parameters
+    p = Parameters(ref_sequences=[], percentage_identity=PI,
+                   reference_size=n_bp + n_bp // 80 + 10).finalize()
+    k, w, s = p.kmer_size, p.seg_length, p.sketch_size
+    t0 = time.perf_counter()
+    contigs = [("overlimit", random_genome(n_bp, seed=SEED))]
+    n = n_bp - k + 1
+    print(f"[overlimit] contig {n_bp} bp, {n} positions (default rank "
+          f"limit {builder.DEFAULT_RANK_LIMIT}), k={k} w={w} s={s}; "
+          f"made in {time.perf_counter() - t0} s")
+    if n <= builder.DEFAULT_RANK_LIMIT:
+        raise AssertionError("[overlimit] the contig is not over the limit")
+    built = {}
+    for route, limit in (("host", builder.DEFAULT_RANK_LIMIT),
+                         ("device", 2 ** 30)):
+        peak_bytes(device)
+        theta.LAUNCHES = 0
+        t0 = time.perf_counter()
+        built[route] = builder.build_index(contigs, k, w, s,
+                                           rank_limit=limit, device=device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        built[route + "_launches"] = theta.LAUNCHES
+        idx = built[route]
+        print(f"[overlimit] {route} route (rank_limit={limit}): build_s="
+              f"{t1 - t0} theta_launches={theta.LAUNCHES} "
+              f"max_memory_allocated={peak_bytes(device)} "
+              f"minmer rows={len(idx.mi_rank)} unique="
+              f"{len(idx.uniq_hashes)} postings={len(idx.post_seqid)}")
+    a, b = built["host"], built["device"]
+    for f in builder._NPZ_FIELDS:
+        if not np.array_equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"[overlimit] index array {f}: host route "
+                                 f"!= device route")
+    if (a.names, a.freq_threshold) != (b.names, b.freq_threshold):
+        raise AssertionError("[overlimit] index metadata differs")
+    if built["host_launches"] <= 0:
+        raise AssertionError("[overlimit] the host route launched no theta "
+                             "kernel")
+    if len(a.mi_rank) == 0:
+        raise AssertionError("[overlimit] empty index")
+    print(f"[overlimit] host route == device route: "
+          f"{len(builder._NPZ_FIELDS)} index arrays equal")
+    return built["host_launches"]
+
+
 def build_all():
     """Build the theta and banded DP kernels and the native FASTA reader,
     all started together (each build is its own nvcc or g++ process);
@@ -851,10 +1063,23 @@ def main():
     profile_align(fa_main, legacy, device)
     align_small(fa_small, device)
 
+    # 9. the parallel layer: two shards, two blocks, two processes
+    by_path = {"main": launches}
+    by_path["shard"] = two_entry_phase("[shard]", fa_main, device, paf,
+                                       shard=True)
+    by_path["mesh"] = two_entry_phase("[mesh]", fa_main, device, paf,
+                                      shard=False)
+    with open(os.path.join(DATA, "smoke_cli.paf")) as fh:
+        by_path["dist"] = dist_phase(fa_main, fh.read(), device)
+
+    # 10. a contig over the rank limit: host route == device route
+    by_path["overlimit"] = overlimit_phase(device)
+
     rec = {"name": rec.pop("name"), "route": rec.pop("route"),
            "source": rec.pop("source"), "replaces": rec.pop("replaces"),
            "launches": launches,
-           "max_abs_err": max(err, rec.pop("max_abs_err")), **rec}
+           "max_abs_err": max(err, rec.pop("max_abs_err")), **rec,
+           "launches_by_path": by_path}
     # the banded DP's top-level times are those of the bucket that took
     # the most pieces on the aligner's main path; "buckets" has all four
     top = max(dp_recs, key=lambda b: st.pieces.get(b, 0))

@@ -2,22 +2,25 @@
 
 Equivalent of the reference `mashmap` main (src/map/mash_map.cpp:22-57):
 index construction then query mapping. Counterpart of
-``mashmap_tpu/api.py`` for one process on one torch device (CUDA unless
-the caller passes ``device="cpu"``).
+``mashmap_tpu/api.py``: on CUDA unless the caller passes
+``device="cpu"``, on a list of ``devices`` (parallel/mesh.py), and in
+one of several processes (parallel/distributed.py).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import sys
 import time
 from typing import Optional
 
-from .params import Parameters
+from .params import Parameters, FILTER_ONETOONE
 from .index.builder import ReferenceIndex, build_index
 from .io import for_each_seq_in_file
 from .map.engine import Mapper
-from .utils import resolve_device
+from .parallel import distributed
+from .parallel.mesh import make_mesh
 
 logger = logging.getLogger("mashmap_tpu_torch")
 
@@ -51,17 +54,27 @@ def build_or_load_index(params: Parameters, device=None) -> ReferenceIndex:
 
 def map_files(params: Parameters,
               index: Optional[ReferenceIndex] = None,
-              device=None) -> ReferenceIndex:
-    """Run the full pipeline; returns the index (reusable)."""
-    device = resolve_device(device)
-    if (params.shard_index or params.coordinator
-            or (params.num_processes or 1) > 1
-            or (params.process_id or 0) != 0):
-        raise NotImplementedError(
-            "multi-process and sharded-index runs (--shardIndex, "
-            "--coordinator, --numProcesses, --processId) wait for the "
-            "port's parallel/ slice; run one process on one device")
+              device=None, devices=None) -> ReferenceIndex:
+    """Run the full pipeline; returns the index (reusable).
+
+    Maps on ``devices`` (default: ``[device]`` when a device is named,
+    else every visible CUDA device); the index builds on the first. A
+    coordinator and >= 2 processes (flags or MASHMAP_TPU_* variables)
+    make this one process of a multi-process run."""
+    if devices is None and device is not None:
+        devices = [device]
+    devices = make_mesh(devices)
     params.finalize()
+    ctx = distributed.setup(params.coordinator, params.num_processes,
+                            params.process_id)
+    if ctx is not None:
+        if params.out_file_name == "-":
+            raise ValueError(
+                "multi-process runs need a file output (-o), not stdout")
+        if not ctx.is_primary:
+            # concurrent writers would race on --saveIndex; the build is
+            # deterministic, so every process gets the same tables
+            params.save_index_filename = ""
     # start reading the query stream NOW, so its I/O + decompression
     # overlap the index build/load; a bounded queue caps memory for
     # arbitrarily large query sets
@@ -75,7 +88,7 @@ def map_files(params: Parameters,
     # the full queue instead of propagating the error
     try:
         if index is None:
-            index = build_or_load_index(params, device)
+            index = build_or_load_index(params, devices[0])
         if params.load_index_filename and (
                 index.kmer_size != params.kmer_size
                 or index.window_size != params.seg_length
@@ -94,9 +107,13 @@ def map_files(params: Parameters,
             params.kmer_size = index.kmer_size
             params.seg_length = index.window_size
             params.sketch_size = index.sketch_size
-        mapper = Mapper(params, index, device)
+        mapper = Mapper(params, index, devices=devices)
         t0 = time.time()
-        if params.out_file_name == "-":
+        if ctx is not None:
+            part = ctx.part_path(params.out_file_name)
+            with open(part, "w") as out:
+                mapper.run(params.query_sequences, out, reader=reader)
+        elif params.out_file_name == "-":
             mapper.run(params.query_sequences, sys.stdout, reader=reader)
         else:
             with open(params.out_file_name, "w") as out:
@@ -105,5 +122,16 @@ def map_files(params: Parameters,
         if reader is not None:
             reader.close()
         raise
+    if ctx is not None:
+        distributed.barrier("map-parts-done")
+        if ctx.is_primary:
+            if params.filter_mode == FILTER_ONETOONE:
+                # process 0 wrote the whole output already
+                os.replace(part, params.out_file_name)
+                for pid in range(1, ctx.num_processes):
+                    os.remove(ctx.part_path(params.out_file_name, pid))
+            else:
+                distributed.merge_paf_parts(params.out_file_name, ctx)
+        distributed.barrier("map-merged")
     logger.info("mapping done in %.2fs", time.time() - t0)
     return index

@@ -3,14 +3,16 @@
 Counterpart of ``mashmap_tpu/cli.py``, with the same flags, option
 strings, defaults and validation messages (reference:
 src/map/include/parseCmdArgs.hpp:30-135 for the options, :257-659 for
-parsing and derivation). The runtime flags of the JAX package parse the
-same way; ``--shardIndex``, ``--coordinator``, ``--numProcesses`` and
-``--processId`` then make the run raise ``NotImplementedError`` until
-the port has its parallel package.
+parsing and derivation), the runtime flags included: ``--shardIndex``
+splits the index across the devices, ``--coordinator``,
+``--numProcesses`` and ``--processId`` make the run one process of a
+multi-process run (parallel/distributed.py).
 
     python -m mashmap_tpu_torch.cli -r ref.fa -q q.fa -o out.paf
 
-runs on the CUDA device; ``main(argv, device="cpu")`` runs on the CPU.
+runs on every visible CUDA device; ``main(argv, device="cpu")`` runs on
+the CPU, and ``main(argv, devices=[...])`` on a list of devices, which
+may repeat (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import sys
 
 from .params import Parameters, FIXED, FILTER_MAP, FILTER_NONE, \
     FILTER_ONETOONE
-from .utils import handy_parameter, resolve_device
+from .utils import handy_parameter
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -116,18 +118,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--noDevicePipeline", action="store_true",
                    help="run L1/L2 on the host instead of the device")
     p.add_argument("--shardIndex", action="store_true",
-                   help="shard the seed index across devices (not ported "
-                        "yet: the run raises)")
+                   help="shard the seed index by hash range across the "
+                        "devices instead of replicating it (for indexes "
+                        "larger than one device's memory)")
     p.add_argument("--batchFragments", type=int, default=512)
     p.add_argument("--coordinator", default=None,
-                   help="multi-process launch: coordinator host:port (not "
-                        "ported yet: the run raises)")
+                   help="multi-process launch: coordinator host:port "
+                        "(or MASHMAP_TPU_COORDINATOR)")
     p.add_argument("--numProcesses", type=int, default=None,
-                   help="multi-process launch: total process count (not "
-                        "ported yet: the run raises above 1)")
+                   help="multi-process launch: total process count "
+                        "(or MASHMAP_TPU_NUM_PROCS)")
     p.add_argument("--processId", type=int, default=None,
-                   help="multi-process launch: this process's id (not "
-                        "ported yet: the run raises above 0)")
+                   help="multi-process launch: this process's id "
+                        "(or MASHMAP_TPU_PROC_ID)")
     p.add_argument("--noProgress", action="store_true",
                    help="disable the live progress meter")
     p.add_argument("--profile", action="store_true",
@@ -273,9 +276,10 @@ def echo_params(p: Parameters) -> None:
           f"(1 = map, 2 = one-to-one, 3 = none)", file=e)
 
 
-def main(argv=None, device=None) -> int:
-    """Parse argv (default: sys.argv[1:]) and map on ``device`` (default
-    CUDA; raises without a card unless the caller passes "cpu")."""
+def main(argv=None, device=None, devices=None) -> int:
+    """Parse argv (default: sys.argv[1:]) and map on ``devices`` (default
+    ``[device]``, or every visible CUDA device when neither is given;
+    raises without a card unless the caller passes "cpu")."""
     args = build_parser().parse_args(argv)
     if args.version:
         print(f"{FIXED.VERSION} (mashmap-tpu-torch)", file=sys.stderr)
@@ -284,7 +288,10 @@ def main(argv=None, device=None) -> int:
         level=logging.INFO if args.profile else logging.WARNING,
         format="[mashmap-tpu-torch] %(message)s")
     params = args_to_params(args)
-    device = resolve_device(device)
+    if devices is None and device is not None:
+        devices = [device]
+    from .parallel.mesh import make_mesh
+    devices = make_mesh(devices)
     echo_params(params)
     from .api import map_files
     if args.traceDir:
@@ -294,14 +301,14 @@ def main(argv=None, device=None) -> int:
         # viewable in Perfetto or chrome://tracing
         from torch.profiler import ProfilerActivity, profile
         acts = [ProfilerActivity.CPU]
-        if device.type == "cuda":
+        if any(d.type == "cuda" for d in devices):
             acts.append(ProfilerActivity.CUDA)
         with profile(activities=acts) as prof:
-            map_files(params, device=device)
+            map_files(params, devices=devices)
         os.makedirs(args.traceDir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.traceDir, "trace.json"))
     else:
-        map_files(params, device=device)
+        map_files(params, devices=devices)
     return 0
 
 

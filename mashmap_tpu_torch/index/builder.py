@@ -274,6 +274,103 @@ def strand_classify(iv_hash, iv_wb, iv_we, mp, mh, md, n_w, s_b, n_k,
     return s_hash, s_wb, s_we, s_strand
 
 
+def contig_minmer_intervals(h, valid, strand, theta, window_span: int,
+                            n_flush: int, sent=winnow.SENTINEL):
+    """Minmer membership intervals of one contig from theta (host).
+
+    Membership(h, W) = present(h, W) and h <= theta(W). One k-mer enters
+    (position W + span - 1) and one leaves (position W - 1) per window
+    step, so membership changes are O(1) per window: the entering hash
+    gains membership if it newly became present and clears the
+    threshold; when theta rises, the hash at the new threshold gains it;
+    symmetric rules for losses (the reference's sequential sweep,
+    commonFunc.hpp:376-520, as flat vector ops).
+
+    ``h`` holds int32 ranks (the host route) or raw u64 hashes; ``theta``
+    is in the same domain, ``sent`` where a window holds fewer than s.
+
+    Returns ((hash, wb, we), (s_hash, s_wb, s_we, s_strand)): membership
+    intervals (postings granularity, ``we`` of open intervals is
+    ``n_flush``) and the strand-classified intervals before chunking.
+    """
+    n_k = len(h)
+    s_b = int(window_span)
+    n_w = len(theta)
+    empty_h = np.empty(0, h.dtype)
+    empty_i = np.empty(0, np.int64)
+    if n_w <= 0:
+        return ((empty_h, empty_i, empty_i),
+                (empty_h, empty_i, empty_i, np.empty(0, np.int8)))
+
+    # prev/next valid occurrence of the same hash: one packed-key sort
+    # in the rank domain (values < 2^31, positions < 2^32)
+    vpos = np.nonzero(valid)[0].astype(np.uint64)
+    if h.dtype == np.uint64 or n_k >= (1 << 32):
+        order = np.lexsort((vpos, h[vpos]))
+        sp = vpos[order].astype(np.int64)
+    else:
+        key = (h[vpos].astype(np.uint64) << np.uint64(32)) | vpos
+        key.sort()
+        sp = (key & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    sh = h[sp]
+    same_prev = np.zeros(len(sp), bool)
+    same_prev[1:] = sh[1:] == sh[:-1]
+    prev_s = np.where(same_prev, np.concatenate(([0], sp[:-1])), -1)
+    same_next = np.zeros(len(sp), bool)
+    same_next[:-1] = sh[1:] == sh[:-1]
+    next_s = np.where(same_next, np.concatenate((sp[1:], [0])), n_k + s_b)
+    prev_occ = np.full(n_k, -1, np.int32)
+    prev_occ[sp] = prev_s
+    next_occ = np.full(n_k, n_k + s_b, np.int32)
+    next_occ[sp] = next_s
+
+    # membership change events over W in [1, n_w); every access indexed
+    # by W, W-1 or W+s_b-1 is a slice
+    W = np.arange(1, n_w, dtype=np.int32)
+    h_in = h[s_b:n_w + s_b - 1]                        # h[W + s_b - 1]
+    th_W = theta[1:n_w]
+    th_Wm1 = theta[:n_w - 1]
+    newly = valid[s_b:n_w + s_b - 1] & (prev_occ[s_b:n_w + s_b - 1] < W)
+    # an occurrence exactly s_b after the previous one keeps the hash
+    # present: no new interval if it was already a member at W-1
+    stayed = (prev_occ[s_b:n_w + s_b - 1] == W - 1) & (h_in <= th_Wm1)
+    begin1 = newly & (h_in <= th_W) & ~stayed
+    h_out = h[:n_w - 1]                                # h[W - 1]
+    lost = valid[:n_w - 1] & \
+        (next_occ[:n_w - 1].astype(np.int64) > W.astype(np.int64)
+         + (s_b - 1))
+    end1 = lost & (h_out <= th_Wm1)
+    rose = th_W > th_Wm1
+    begin2 = rose & (th_W != sent) & ~(begin1 & (h_in == th_W))
+    fell = th_W < th_Wm1
+    end2 = fell & (th_Wm1 != sent) & ~(lost & (h_out == th_Wm1))
+
+    # initial members of window 0
+    n0 = min(s_b, n_k)
+    init_mask = valid[:n0] & (prev_occ[:n0] < 0) & (h[:n0] <= theta[0])
+
+    beg_W = np.concatenate([np.zeros(init_mask.sum(), np.int64),
+                            W[begin1].astype(np.int64),
+                            W[begin2].astype(np.int64)])
+    beg_h = np.concatenate([h[:n0][init_mask], h_in[begin1],
+                            th_W[begin2]])
+    end_W = np.concatenate([W[end1].astype(np.int64),
+                            W[end2].astype(np.int64)])
+    end_h = np.concatenate([h_out[end1], th_Wm1[end2]])
+
+    iv_hash, iv_wb, iv_we, uh = _pair_begin_end(
+        beg_h, beg_W, end_h, end_W, n_flush)
+
+    # member occurrences: only hashes with membership intervals matter
+    member_occ = np.isin(sh, uh)
+    mp, mh = sp[member_occ], sh[member_occ]
+    md = strand[mp].astype(np.int64)
+
+    s_hash, s_wb, s_we, s_strand = strand_classify(
+        iv_hash, iv_wb, iv_we, mp, mh, md, n_w, s_b, n_k, h.dtype)
+    return (iv_hash, iv_wb, iv_we), (s_hash, s_wb, s_we, s_strand)
+
+
 def _chunk_long_intervals(hash_, wb, we, strand, window_size: int):
     """Split intervals spanning more than windowSize into <=windowSize
     chunks (reference: commonFunc.hpp:531-555)."""
@@ -432,7 +529,8 @@ def build_index(
     Contigs are processed in groups of at most ``rank_limit`` k-mer
     positions; each group rank-reduces into its own int32 rank domain
     and resolves back to u64 hashes before the global postings merge.
-    A single contig longer than ``rank_limit`` is not supported yet.
+    A single contig with more than ``rank_limit`` positions forms a
+    group of its own and takes the host route (``_build_group_host``).
     ``device`` defaults to CUDA (see utils.resolve_device).
     """
     device = resolve_device(device)
@@ -448,9 +546,9 @@ def build_index(
     acc_mgid: List[int] = []     # owning group of each acc_mh slot array
     group_vals: List[np.ndarray] = []   # per-group sorted surviving u64s
 
-    def run_group(group):
-        results, vals = _build_group(group, kmer_size, window_size,
-                                     sketch_size, threads, device)
+    def run_group(group, build=_build_group):
+        results, vals = build(group, kmer_size, window_size, sketch_size,
+                              threads, device)
         gid = len(group_vals)
         group_vals.append(vals)
         for seq_id, (ph, pb, pe), (mh, mb, me, ms) in results:
@@ -475,10 +573,14 @@ def build_index(
             continue
         n = len(seq) - kmer_size + 1
         if n > rank_limit:
-            raise NotImplementedError(
-                f"contig {name!r} has {n} k-mer positions, more than the "
-                f"device rank limit {rank_limit}; the host route for such "
-                f"contigs is not ported yet")
+            # over the limit: a group of its own on the host route
+            if group:
+                run_group(group)
+                group, group_pos = [], 0
+            logger.info("contig %r has %d positions, over the device rank "
+                        "limit %d: host route", name, n, rank_limit)
+            run_group([(seq_id, seq)], _build_group_host)
+            continue
         if group and group_pos + n > rank_limit:
             run_group(group)
             group, group_pos = [], 0
@@ -564,11 +666,12 @@ def build_index(
     )
 
 
-def _resolve_group_hashes(results, lut: torch.Tensor):
+def _resolve_group_hashes(results, lut):
     """Map one group's rank-domain outputs out of the group-local domain.
 
-    Gathers the group LUT (device) only at the DISTINCT ranks that
-    survived into postings / minmer rows. Returns ``(rows, vals)``:
+    Gathers the group LUT — a device tensor of int64 bits (device
+    route) or a host u64 array (host route) — only at the DISTINCT ranks
+    that survived into postings / minmer rows. Returns ``(rows, vals)``:
     postings hashes are resolved to u64, interval-row hashes stay as
     SLOTS into ``vals`` (the group's sorted surviving u64 values).
     """
@@ -583,8 +686,11 @@ def _resolve_group_hashes(results, lut: torch.Tensor):
     seen[flat] = True
     uniq_r = np.flatnonzero(seen)
     slot = np.cumsum(seen, dtype=np.int32) - 1
-    idx = torch.from_numpy(uniq_r).to(lut.device)
-    vals = lut[idx].cpu().numpy().view(np.uint64)
+    if isinstance(lut, np.ndarray):
+        vals = lut[uniq_r]
+    else:
+        idx = torch.from_numpy(uniq_r).to(lut.device)
+        vals = lut[idx].cpu().numpy().view(np.uint64)
     out = []
     for seq_id, (ph, pb, pe), (mh, mb, me, ms) in results:
         ph_u = vals[slot[ph]] if len(ph) else u64e
@@ -608,22 +714,25 @@ def _pad_to(x: torch.Tensor, n: int, fill) -> torch.Tensor:
                                     device=x.device)])
 
 
-def _hash_contig(seq_u8: np.ndarray, k: int, device):
-    """Rank-domain inputs of one contig: (u64 hashes with UMAX where
-    invalid, strand) as device int64 / int8. Slabs bound the hashing
+def _hash_slabs(seq_u8: np.ndarray, k: int, device):
+    """Yield (u64 hashes with UMAX where invalid, strand) of one contig
+    as device int64 / int8, slab by slab. Slabs bound the hashing
     temporaries; only the contig's first k-1 bases are exempt from the
     N rule (the tail rule on the first slab, the full-window rule on
     the others)."""
     n = len(seq_u8) - k + 1
     seq = torch.from_numpy(seq_u8).to(device)
-    hs, ss = [], []
     for lo in range(0, n, _slab_step(k)):
         hi = min(lo + _slab_step(k), n)
         ch, cs, cp, has_n, has_n_tail = kmers.canonical_kmer_hashes(
             seq[lo:hi + k - 1], k)
         bad = cp | (has_n_tail if lo == 0 else has_n)
-        hs.append(torch.where(bad, UMAX, ch))
-        ss.append(cs)
+        yield torch.where(bad, UMAX, ch), cs
+
+
+def _hash_contig(seq_u8: np.ndarray, k: int, device):
+    """Rank-domain inputs of one contig on the device (see _hash_slabs)."""
+    hs, ss = zip(*_hash_slabs(seq_u8, k, device))
     return torch.cat(hs), torch.cat(ss)
 
 
@@ -732,3 +841,47 @@ def _build_group(group: List[Tuple[int, str]], kmer_size: int,
         results = [one_contig(i) for i in order]
     results.sort(key=lambda t: t[0])
     return _resolve_group_hashes(results, lut)
+
+
+def _build_group_host(group: List[Tuple[int, str]], kmer_size: int,
+                      window_size: int, sketch_size: int, threads: int,
+                      device):
+    """Index-build pipeline for a group whose contig is over the rank
+    limit (the JAX build's host route, ``_build_group`` with its hashes
+    streamed to the host).
+
+    Device: hashing, slab by slab, each slab copied to the host; then
+    theta over the host ranks (the theta kernel on a card). Host: the
+    rank reduction (``winnow.rank_reduce_host``) and the membership
+    events (``contig_minmer_intervals``) in place of the events kernel,
+    whose packing needs ranks below 2^30. Returns what ``_build_group``
+    returns. ``threads`` is unused: the group holds one contig.
+    """
+    span = window_size - kmer_size + 1
+    contig_hv, strands = [], []
+    for _, seq in group:
+        seq_u8 = kmers.sanitize(seq.encode("ascii"))
+        hs, ss = [], []
+        for h, s_ in _hash_slabs(seq_u8, kmer_size, device):
+            hs.append(h.cpu().numpy().view(np.uint64))
+            ss.append(s_.cpu().numpy())
+        h = np.concatenate(hs)
+        contig_hv.append((h, h != winnow.SENTINEL))
+        strands.append(np.concatenate(ss))
+    rank_list, uniq = winnow.rank_reduce_host(contig_hv)
+    del contig_hv
+    thetas = winnow.theta_scan_ranks(
+        [torch.from_numpy(r).to(device) for r in rank_list], sketch_size,
+        span)
+    thetas = [None if t is None else t.cpu().numpy() for t in thetas]
+
+    def one_contig(i):
+        r, theta = rank_list[i], thetas[i]
+        (ph, pb, pe), (mh, mb, me, ms) = contig_minmer_intervals(
+            r, r != RSENT, strands[i], theta, span, n_flush=len(r),
+            sent=RSENT)
+        mh, mb, me, ms = _chunk_long_intervals(mh, mb, me, ms, window_size)
+        return group[i][0], (ph, pb, pe), _sort_rows(mh, mb, me, ms)
+
+    results = [one_contig(i) for i, t in enumerate(thetas) if t is not None]
+    return _resolve_group_hashes(results, uniq)

@@ -51,6 +51,41 @@ def _rank_reduce(hm: torch.Tensor):
     return ranks, lut
 
 
+def rank_reduce_host(contigs):
+    """Host (numpy) rank reduction over all contigs.
+
+    Args:
+      contigs: per contig, (u64 hashes, valid mask) numpy arrays.
+
+    Returns (per-contig int32 rank arrays with RSENT at invalid
+    positions, sorted unique u64 value LUT) — the ranks and LUT of the
+    JAX package's ``rank_reduce_host``. One argsort over all positions
+    gives both (as ``_rank_reduce`` does on the device), instead of a
+    binary search per position into the unique values.
+    """
+    if not contigs:
+        return [], np.empty(0, np.uint64)
+    hm = np.concatenate([np.where(v, h, SENTINEL) for h, v in contigs])
+    order = np.argsort(hm)
+    sv = hm[order]
+    newv = np.empty(len(sv), bool)
+    newv[:1] = True
+    np.not_equal(sv[1:], sv[:-1], out=newv[1:])
+    live = sv != SENTINEL
+    newv &= live
+    uniq = sv[newv]
+    assert len(uniq) < np.iinfo(np.int32).max
+    rank_sorted = np.cumsum(newv, dtype=np.int32) - 1
+    rank_sorted[~live] = RSENT
+    ranks = np.empty(len(hm), np.int32)
+    ranks[order] = rank_sorted
+    out, a = [], 0
+    for h, _ in contigs:
+        out.append(ranks[a:a + len(h)])
+        a += len(h)
+    return out, uniq
+
+
 def theta_blocks(rank_list: Sequence[torch.Tensor], s_b: int):
     """The block rows theta_chunk takes for a list of contigs.
 

@@ -1,11 +1,13 @@
 """Mapping engine orchestration.
 
-Counterpart of ``mashmap_tpu/map/engine.py`` on one torch device;
-equivalent of ``skch::Map`` (reference: computeMap.hpp:53-1818):
+Counterpart of ``mashmap_tpu/map/engine.py``; equivalent of
+``skch::Map`` (reference: computeMap.hpp:53-1818):
 
 - query sequences are cut into segLength fragments that form a flat
   batch axis; each batch runs ``l1_step`` and then ``l2_step`` on the
-  device (kernels/mapdev.py);
+  device (kernels/mapdev.py) — on a list of devices, one contiguous row
+  block each (parallel/mesh.py), over a replicated or a sharded index
+  (parallel/sharded_index.py);
 - fragments or candidates that overflow the device caps take the host
   routes (map/l1.py, map/l2.py), which give the same rows;
 - results are regrouped per query (a query's fragments may span
@@ -31,7 +33,8 @@ from ..index.builder import ReferenceIndex
 from ..kernels import kmers
 from ..kernels.murmur import flip
 from ..kernels.sketch import sketch_fragments, complexity_rescale
-from ..utils import resolve_device
+from ..parallel.mesh import distinct, make_mesh
+from ..parallel.sharded_index import L2_T_MAX
 from . import l1 as l1_mod
 from . import l2 as l2_mod
 from . import filters, merge, output
@@ -39,20 +42,30 @@ from .results import MappingResult
 
 logger = logging.getLogger("mashmap_tpu_torch.map")
 
-# L2 work buckets by interval-slice length; W*T per call stays constant
-T_BUCKETS = (512, 1024, 2048, 8192)
+# L2 work buckets by interval-slice length; W*T per call stays constant.
+# The sharded index keeps a coarser ladder (its routing by owner
+# multiplies the calls by the shard count); its top is the slab halo.
+T_BUCKETS = (512, 1024, 2048, L2_T_MAX)
+T_BUCKETS_SHARDED = (512, 2048, L2_T_MAX)
 
 
-def _batch_pad_rows(B: int, batch_fragments: int) -> int:
+def _round_up(n: int, m: int) -> int:
+    return n + (-n) % m
+
+
+def _batch_pad_rows(B: int, batch_fragments: int, n_dev: int = 1) -> int:
     """Padded row count for a B-fragment batch: {2^k, 1.5*2^k} grid,
-    quarter-width tail floor, full-batch floor."""
+    quarter-width tail floor, full-batch floor, divisible by the device
+    count."""
     Bp = 1 << max(3, (B - 1).bit_length())
     if B <= (Bp * 3) // 4:
         Bp = (Bp * 3) // 4
     b_small = min(batch_fragments, max(64, batch_fragments // 4))
     if B <= b_small:
-        return b_small
-    return max(batch_fragments, Bp)
+        Bp = b_small
+    else:
+        Bp = max(batch_fragments, Bp)
+    return _round_up(Bp, n_dev)
 
 
 @dataclasses.dataclass
@@ -99,13 +112,25 @@ class _Batch:
 
 
 class Mapper:
-    """L1+L2 mapping pipeline against a built ReferenceIndex."""
+    """L1+L2 mapping pipeline against a built ReferenceIndex.
+
+    Runs on ``devices`` (parallel/mesh.py: by default ``[device]`` when
+    a device is named, else every visible CUDA device); outputs gather on
+    the first. With ``params.shard_index`` and more than one entry the
+    index is split across them (parallel/sharded_index.py).
+    """
 
     def __init__(self, params: Parameters, index: ReferenceIndex,
-                 device=None):
+                 device=None, devices=None):
         self.p = params
         self.idx = index
-        self.device = resolve_device(device)
+        if devices is None and device is not None:
+            devices = [device]
+        self.devices = make_mesh(devices)
+        self.device = self.devices[0]
+        self._n_dev = len(self.devices)
+        self._sharded = None
+        self._dist = None
         self._mi_key = None
         self._dev = None
         self._cfg = None
@@ -487,7 +512,10 @@ class Mapper:
 
     # --- device fragment pipeline ------------------------------------
     def _device_tables(self):
-        """The index and lookup tables on the device (once)."""
+        """The lookup tables and the index on the devices (once): one
+        replicated copy per distinct device, or, with shard_index on
+        more than one entry, the index split across the entries and only
+        the small tables on the first."""
         if self._dev is not None:
             return self._dev
         p = self.p
@@ -497,28 +525,55 @@ class Mapper:
             mh_table[sq] = max(1, self._minimum_hits(sq))
         ct = (self.cutoff_table.astype(np.int32)
               if self.cutoff_table is not None else np.ones(2, np.int32))
+        if p.shard_index and self._n_dev > 1:
+            from ..parallel.sharded_index import build_sharded_index
+            self._sharded = build_sharded_index(idx, self.devices)
+        elif p.shard_index:
+            logger.warning(
+                "shard_index requested but only one device is visible; "
+                "falling back to the replicated index")
 
-        def put(x):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        self._tables = {}
+        for dev in ([self.device] if self._sharded is not None
+                    else distinct(self.devices)):
+            def put(x, dev=dev):
+                return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-        self._dev = {
-            "min_hits_table": put(mh_table),
-            "cutoff_table": put(ct),
-            "ref_group": put(self.ref_groups.astype(np.int32)),
-            "uniq_flip": flip(put(idx.uniq_hashes.view(np.int64))),
-            "post_offsets": put(idx.post_offsets.astype(np.int64)),
-            "post_seqid": put(idx.post_seqid),
-            "post_wpos": put(idx.post_wpos),
-            "post_wend": put(idx.post_wend),
-            "is_frequent": put(idx.is_frequent),
-            "mi_key": put(self.mi_key),
-            "mi_seqid": put(idx.mi_seqid),
-            "mi_wpos": put(idx.mi_wpos),
-            "mi_rank": put(idx.mi_rank),
-            "mi_wend": put(idx.mi_wend),
-            "mi_strand": put(idx.mi_strand),
-        }
+            t = {"min_hits_table": put(mh_table),
+                 "cutoff_table": put(ct),
+                 "ref_group": put(self.ref_groups.astype(np.int32))}
+            if self._sharded is None:
+                t.update({
+                    "uniq_flip": flip(put(idx.uniq_hashes.view(np.int64))),
+                    "post_offsets": put(idx.post_offsets.astype(np.int64)),
+                    "post_seqid": put(idx.post_seqid),
+                    "post_wpos": put(idx.post_wpos),
+                    "post_wend": put(idx.post_wend),
+                    "is_frequent": put(idx.is_frequent),
+                    "mi_key": put(self.mi_key),
+                    "mi_seqid": put(idx.mi_seqid),
+                    "mi_wpos": put(idx.mi_wpos),
+                    "mi_rank": put(idx.mi_rank),
+                    "mi_wend": put(idx.mi_wend),
+                    "mi_strand": put(idx.mi_strand),
+                })
+            self._tables[dev] = t
+        self._dev = self._tables[self.device]
         return self._dev
+
+    def _row_blocks(self, n_rows: int):
+        """(device, rows) of each device's contiguous block of ``n_rows``
+        rows (a multiple of the device count)."""
+        step = n_rows // self._n_dev
+        return [(d, slice(i * step, (i + 1) * step))
+                for i, d in enumerate(self.devices)]
+
+    def _cat_rows(self, parts):
+        """Per-block outputs concatenated in row order on the first
+        device."""
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([x.to(self.device) for x in parts])
 
     def _l1cfg(self):
         from ..kernels.mapdev import L1Config
@@ -554,35 +609,52 @@ class Mapper:
         return [rows for _, rows in self._post_batch(ctx)]
 
     def _dispatch_batch(self, frags) -> _Batch:
-        """Stage 1: host matrix prep + l1_step."""
+        """Stage 1: host matrix prep + l1_step (one call per device
+        block, or the sharded step)."""
         from ..kernels.mapdev import l1_step
 
         p = self.p
         dev = self._device_tables()
         cfg = self._l1cfg()
         B = len(frags)
-        Bp = _batch_pad_rows(B, p.batch_fragments)
+        Bp = _batch_pad_rows(B, p.batch_fragments, self._n_dev)
         L = p.seg_length
         mat = np.full((Bp, L), ord("N"), np.uint8)
         allowed = np.zeros((Bp, self.idx.n_contigs), bool)
         for i, fr in enumerate(frags):
             mat[i, :fr.q_len] = fr.q.u8[fr.q_start:fr.q_start + fr.q_len]
             allowed[i] = True if fr.q.allowed is None else fr.q.allowed
-        out, qh_dev, qs_dev = l1_step(
-            torch.from_numpy(mat).to(self.device), dev["uniq_flip"],
-            dev["post_offsets"], dev["post_seqid"], dev["post_wpos"],
-            dev["post_wend"], dev["is_frequent"], dev["min_hits_table"],
-            dev["cutoff_table"], torch.from_numpy(allowed).to(self.device),
-            dev["ref_group"], dev["mi_key"], cfg)
+        mat_t, allowed_t = torch.from_numpy(mat), torch.from_numpy(allowed)
+        if self._sharded is not None:
+            from ..parallel.sharded_index import l1_step_sharded
+            si = self._sharded
+            # gather at most p_cap postings a shard: a row with more
+            # overflows to the host route however many are gathered
+            out, qh_dev, qs_dev = l1_step_sharded(
+                mat_t.to(self.device), si.uniq, si.offsets, si.seqid,
+                si.wpos, si.wend, si.frequent, dev["min_hits_table"],
+                dev["cutoff_table"], allowed_t.to(self.device),
+                dev["ref_group"], si.mi_key, si.mi_row0, si.key_bounds,
+                cfg, min(si.p_shard, cfg.p_cap))
+        else:
+            parts = []
+            for d, rows in self._row_blocks(Bp):
+                t = self._tables[d]
+                parts.append(l1_step(
+                    mat_t[rows].to(d), t["uniq_flip"], t["post_offsets"],
+                    t["post_seqid"], t["post_wpos"], t["post_wend"],
+                    t["is_frequent"], t["min_hits_table"],
+                    t["cutoff_table"], allowed_t[rows].to(d),
+                    t["ref_group"], t["mi_key"], cfg))
+            out, qh_dev, qs_dev = (self._cat_rows(x) for x in zip(*parts))
         return _Batch(frags=frags, mat=mat[:B], out=out,
                       qh_dev=qh_dev, qs_dev=qs_dev)
 
     def _collect_l1(self, ctx: _Batch):
         """Stage 2: fetch l1 meta, derive L2 work, run the l2 chunks."""
-        from ..kernels.mapdev import unpack_l1_meta, l2_step
+        from ..kernels.mapdev import unpack_l1_meta
 
         p = self.p
-        dev = self._dev
         cfg = self._l1cfg()
         frags = ctx.frags
         B = len(frags)
@@ -616,11 +688,13 @@ class Mapper:
 
         # bucket work items by interval-slice length; W*T stays constant
         AREA = p.l2_batch * p.l2_entries_cap // 2
-        buckets: dict[int, list] = {t: [] for t in T_BUCKETS}
+        t_buckets = (T_BUCKETS_SHARDED if self._sharded is not None
+                     else T_BUCKETS)
+        buckets: dict[int, list] = {t: [] for t in t_buckets}
         host_l2_set = set()
         for w in work:
             span = w[4] - w[2]
-            for t in T_BUCKETS:
+            for t in t_buckets:
                 if span <= t:
                     buckets[t].append(w)
                     self.path_stats["l2_buckets"][t] = \
@@ -629,31 +703,97 @@ class Mapper:
             else:
                 host_l2_set.add((w[0], w[1]))
                 self.path_stats["host_l2"] += 1
+        if self._sharded is not None:
+            ctx.pending = self._l2_sharded(ctx, buckets, AREA)
+        else:
+            ctx.pending = self._l2_replicated(ctx, buckets, AREA)
+        ctx.host_l2_set = host_l2_set
+
+    @staticmethod
+    def _work_arrays(items, o, Wp: int, row0: int = 0):
+        """L2 call inputs of up to Wp work items: (4, Wp) int32 lo, mid,
+        hi (rebased by row0) and seq; owning fragment; s_q (pads 1)."""
+        wa = np.zeros((4, Wp), np.int32)
+        fidx = np.zeros(Wp, np.int64)
+        sqv = np.ones(Wp, np.int32)
+        for r, (i, j, lo, mid, hi) in enumerate(items):
+            wa[:, r] = (lo - row0, mid - row0, hi - row0,
+                        int(o["cand_seq"][i, j]))
+            fidx[r] = i
+            sqv[r] = o["s_q"][i]
+        return wa, fidx, sqv
+
+    def _l2_replicated(self, ctx: _Batch, buckets, AREA: int):
+        """l2_step over chunks of each bucket, each chunk split into one
+        block per device; returns [(chunk, run buffer)]."""
+        from ..kernels.mapdev import l2_step
+        p = self.p
         pending = []
         for T, todo in buckets.items():
-            W_STEP = max(8, AREA // T)
+            W_STEP = _round_up(max(8, AREA // T), self._n_dev)
             # a trailing partial chunk drops to a quarter-width call
-            W_SMALL = max(8, W_STEP // 4)
+            W_SMALL = _round_up(max(8, W_STEP // 4), self._n_dev)
             for w0 in range(0, len(todo), W_STEP):
                 chunk = todo[w0:w0 + W_STEP]
                 Wp = W_SMALL if len(chunk) <= W_SMALL else W_STEP
-                wa = np.zeros((4, Wp), np.int32)       # lo, mid, hi, seq
-                fidx = np.zeros(Wp, np.int64)
-                sqv = np.ones(Wp, np.int32)
-                for r, (i, j, lo, mid, hi) in enumerate(chunk):
-                    wa[:, r] = (lo, mid, hi, int(o["cand_seq"][i, j]))
-                    fidx[r] = i
-                    sqv[r] = o["s_q"][i]
-                wd = torch.from_numpy(wa).to(self.device)
-                fi = torch.from_numpy(fidx).to(self.device)
-                buf = l2_step(
-                    wd[0], wd[1], wd[2], wd[3], ctx.qh_dev[fi],
-                    ctx.qs_dev[fi], torch.from_numpy(sqv).to(self.device),
-                    dev["mi_rank"], dev["mi_wpos"], dev["mi_wend"],
-                    dev["mi_strand"], dev["mi_seqid"], T, p.sketch_size)
-                pending.append((chunk, buf))
-        ctx.pending = pending
-        ctx.host_l2_set = host_l2_set
+                wa, fidx, sqv = self._work_arrays(chunk, ctx.o, Wp)
+                parts = []
+                for d, rows in self._row_blocks(Wp):
+                    t = self._tables[d]
+                    wd = torch.from_numpy(
+                        np.ascontiguousarray(wa[:, rows])).to(d)
+                    fi = torch.from_numpy(fidx[rows]).to(self.device)
+                    parts.append(l2_step(
+                        wd[0], wd[1], wd[2], wd[3], ctx.qh_dev[fi].to(d),
+                        ctx.qs_dev[fi].to(d),
+                        torch.from_numpy(sqv[rows]).to(d),
+                        t["mi_rank"], t["mi_wpos"], t["mi_wend"],
+                        t["mi_strand"], t["mi_seqid"], T, p.sketch_size))
+                pending.append((chunk, self._cat_rows(parts)))
+        return pending
+
+    def _l2_sharded(self, ctx: _Batch, buckets, AREA: int):
+        """l2_step over the row-range-sharded interval table: each work
+        item routes to the shard whose slab holds its slice (bounds
+        rebased to slab rows), one round of up to W_STEP items a shard
+        per call (a quarter-width call where every shard's share fits);
+        pad rows are None in the chunk. Returns [(chunk, run buffer)]."""
+        from ..parallel.sharded_index import l2_step_sharded
+        p = self.p
+        si = self._sharded
+        n_sh = si.n_shards
+        bnds = si.mi_bounds
+        pending = []
+        for T, todo in buckets.items():
+            W_STEP = max(8, AREA // T)
+            W_SMALL = max(8, W_STEP // 4)
+            by_owner = [[] for _ in range(n_sh)]
+            for w in todo:
+                d = int(np.searchsorted(bnds, w[2], side="right")) - 1
+                by_owner[min(max(d, 0), n_sh - 1)].append(w)
+            rounds = max((len(x) + W_STEP - 1) // W_STEP for x in by_owner)
+            for r in range(rounds):
+                share = [x[r * W_STEP:(r + 1) * W_STEP] for x in by_owner]
+                Wp = (W_SMALL if max(len(x) for x in share) <= W_SMALL
+                      else W_STEP)
+                chunk = [None] * (n_sh * Wp)
+                args = []
+                for d, dev in enumerate(si.devices):
+                    items = share[d]
+                    chunk[d * Wp:d * Wp + len(items)] = items
+                    wa, fidx, sqv = self._work_arrays(
+                        items, ctx.o, Wp, int(bnds[d]))
+                    wd = torch.from_numpy(wa).to(dev)
+                    fi = torch.from_numpy(fidx).to(self.device)
+                    args.append((wd[0], wd[1], wd[2], wd[3],
+                                 ctx.qh_dev[fi].to(dev),
+                                 ctx.qs_dev[fi].to(dev),
+                                 torch.from_numpy(sqv).to(dev)))
+                bufs = l2_step_sharded(
+                    *(list(a) for a in zip(*args)), si.mi_rank, si.mi_wpos,
+                    si.mi_wend, si.mi_strand, si.mi_seqid, T, p.sketch_size)
+                pending.append((chunk, self._cat_rows(bufs)))
+        return pending
 
     def _collect_l2(self, ctx: _Batch):
         """Stage 3: one copy of all l2 run buffers + host-replay rows."""
@@ -671,7 +811,10 @@ class Mapper:
                 n_runs, best, r_ovf, starts, ends, strands = \
                     unpack_l2_runs(all_runs[row0:row0 + nrows])
                 row0 += nrows
-                for r, (i, j, lo, mid, hi) in enumerate(chunk):
+                for r, item in enumerate(chunk):
+                    if item is None:       # sharded-routing pad row
+                        continue
+                    i, j = item[:2]
                     if r_ovf[r]:
                         host_l2_set.add((i, j))
                         continue
@@ -847,11 +990,15 @@ class Mapper:
         (name, seq) stream as iterating ``query_files`` in order, but
         from a thread that started during the index build. Unless
         ``progress`` is False (default: ``not no_progress``), a meter on
-        stderr counts the mapped bases."""
+        stderr counts the mapped bases. In a multi-process run
+        (parallel/distributed.py) the process maps the queries it owns,
+        writes part lines, and credits the meter with the others."""
         from ..io import for_each_seq_in_file, total_seq_stats
+        from ..parallel import distributed
         from ..progress import ProgressMeter
         p = self.p
         t0 = time.time()
+        self._dist = distributed.context()
 
         if progress is None:
             # the reference always paints its meter to stderr
@@ -878,15 +1025,23 @@ class Mapper:
                     yield from for_each_seq_in_file(fname)
 
         def owned_queries():
-            """Queries in file order, maintaining the global counters and
-            one-to-one metadata."""
+            """Owned queries in file order, maintaining the global
+            counters, the one-to-one metadata and the meter's credit for
+            queries another process maps."""
             for name, seq in name_seq_stream():
                 qlen = len(seq)
                 if p.filter_mode == FILTER_ONETOONE:
                     self.qmetadata.append((name, qlen))
                 if qlen >= p.kmer_size:
                     self.total_reads_picked += 1
-                    yield _Query(name, seq, self.total_seq_counter)
+                    if self._dist is not None and not \
+                            self._dist.owns_query(self.total_seq_counter):
+                        # another process maps this query; count its bp
+                        # so the meter tracks global progress
+                        if meter is not None:
+                            meter.increment(qlen)
+                    else:
+                        yield _Query(name, seq, self.total_seq_counter)
                 else:
                     logger.warning(
                         "read %s of %dbp is not long enough for "
@@ -920,7 +1075,18 @@ class Mapper:
             meter.finish()
 
         if p.filter_mode == FILTER_ONETOONE:
-            self._finish_one_to_one(out)
+            if self._dist is not None:
+                # process 0 runs the reference-axis pass over every
+                # process's rows
+                rows_path = self._dist.part_path(p.out_file_name) + ".rows"
+                distributed.dump_rows(rows_path, self._buffered)
+                distributed.barrier("one-to-one-rows")
+                if self._dist.is_primary:
+                    self._buffered = distributed.gather_rows(
+                        p.out_file_name, self._dist)
+                    self._finish_one_to_one(out)
+            else:
+                self._finish_one_to_one(out)
 
         logger.info(
             "count of mapped reads = %d, reads qualified for mapping = %d, "
@@ -934,6 +1100,18 @@ class Mapper:
             self.total_reads_mapped += 1
         if self.p.filter_mode == FILTER_ONETOONE:
             self._buffered.extend(rows)
+        elif self._dist is not None:
+            # part-file line "<query ordinal>\t<paf...>": process 0
+            # merges the parts back into input order
+            import io
+            buf = io.StringIO()
+            output.write_mappings(
+                buf, rows, lambda m: q.name, self.idx.names,
+                self.idx.lengths, self.p.legacy_output,
+                self.p.merge_mappings, self.p.report_ANI_percentage)
+            pfx = f"{q.counter}\t"
+            for ln in buf.getvalue().splitlines(keepends=True):
+                out.write(pfx + ln)
         else:
             output.write_mappings(
                 out, rows, lambda m: q.name, self.idx.names,

@@ -21,6 +21,7 @@ HERE = os.path.dirname(__file__)
 sys.path.insert(0, HERE)
 from genomes import mutate, random_genome, revcomp, write_fasta  # noqa
 from test_torch_dp_pieces import dp_edge_pieces, dp_pieces  # noqa: E402
+from port_fixtures import jax_native_reader, one_torch_thread  # noqa
 
 
 @pytest.mark.parametrize("P,W", [(64, 32), (256, 64)])

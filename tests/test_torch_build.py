@@ -13,6 +13,7 @@ from mashmap_tpu_torch.kernels import events as te
 
 sys.path.insert(0, os.path.dirname(__file__))
 from genomes import pangenome, random_genome  # noqa: E402
+from port_fixtures import one_torch_thread  # noqa: E402,F401
 
 FIELDS = ("lengths", "uniq_hashes", "post_offsets", "post_seqid",
           "post_wpos", "post_wend", "mi_rank", "mi_seqid", "mi_wpos",
@@ -86,8 +87,8 @@ def test_grouping_under_rank_limit():
     # each group holds one contig: its own rank domain and theta launch
     b = _port(contigs, rank_limit=35_000)
     assert_same_index(a, b)
-    with pytest.raises(NotImplementedError):
-        _port(contigs, rank_limit=20_000)
+    # every contig over the limit: each takes the host route
+    assert_same_index(a, _port(contigs, rank_limit=20_000))
 
 
 def test_event_cap_overflow_reruns_with_doubled_caps(monkeypatch):

@@ -11,11 +11,13 @@ import time
 import pytest
 
 from mashmap_tpu import cli as jax_cli
+from mashmap_tpu import native as jax_native
 from mashmap_tpu_torch import cli
 from mashmap_tpu_torch.progress import ProgressMeter
 
 sys.path.insert(0, os.path.dirname(__file__))
 from genomes import mutate, pangenome, write_fasta  # noqa: E402
+from port_fixtures import jax_native_reader, one_torch_thread  # noqa
 
 
 def _actions(parser):
@@ -121,6 +123,23 @@ def test_cli_output_byte_identical_to_jax(genome, case):
     assert want and got == want
 
 
+def test_first_jax_run_independent_of_the_cache(genome, tmp_path,
+                                                monkeypatch):
+    """On an empty cache the fixture's single-threaded load builds the
+    JAX reader, and the first JAX CLI run (the default case) then writes
+    the port's bytes."""
+    cache = tmp_path / "cache"
+    monkeypatch.setenv("XDG_CACHE_HOME", str(cache))
+    monkeypatch.setattr(jax_native, "_lib", None)
+    jax_native._load_fastaread()
+    assert jax_native.native_available()
+    assert [f for f in os.listdir(cache / "mashmap_tpu")
+            if f.endswith(".so")]
+    d, ref, _, _ = genome
+    want, got = _run_both(d, ["-r", ref, "--noProgress"], "cold_cache")
+    assert want and got == want
+
+
 def test_cli_save_then_load_index_byte_identical_to_jax(genome):
     """--saveIndex then --loadIndex: each package's saved index maps to
     the same bytes, and the port maps the same from the JAX package's
@@ -180,14 +199,30 @@ def test_meter_paints_and_leaves_paf_unchanged(genome, capsys):
 @pytest.mark.parametrize("flag", [
     ["--shardIndex"], ["--coordinator", "localhost:1234"],
     ["--numProcesses", "2"], ["--processId", "1"]])
-def test_parallel_flags_parse_and_raise(genome, flag):
+def test_parallel_flags_parse_and_run(genome, flag):
+    """Each flag alone parses as the JAX CLI's and runs single-process
+    (--shardIndex on one device falls back to the replicated index; a
+    coordinator, a process count or an id alone start no multi-process
+    run), writing the JAX CLI's bytes."""
     d, ref, _, _ = genome
-    argv = ["-r", ref, "--noProgress", "-o", str(d / "par.paf")] + flag
+    argv = ["-r", ref, "--noProgress"] + flag
     a = cli.build_parser().parse_args(argv)
     ja = jax_cli.build_parser().parse_args(argv)
     assert vars(a) == vars(ja)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        cli.main(argv, device="cpu")
+    want, got = _run_both(d, argv, "par" + flag[0])
+    assert want and got == want
+
+
+@pytest.mark.parametrize("flag", [
+    ["--numProcesses", "2", "--processId", "2"],
+    ["--numProcesses", "3", "--processId", "-1"]])
+def test_process_id_out_of_range_raises_like_jax(genome, flag):
+    d, ref, _, _ = genome
+    argv = ["-r", ref, "--noProgress", "--coordinator", "127.0.0.1:1",
+            "-o", str(d / "range.paf")] + flag
+    for run in (jax_cli.main, lambda a: cli.main(a, device="cpu")):
+        with pytest.raises(ValueError, match="out of range"):
+            run(argv)
 
 
 def test_version_and_trace_dir(genome, capsys):

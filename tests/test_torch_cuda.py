@@ -1,6 +1,7 @@
 """The port on a CUDA card: the hand-written theta and banded DP kernels
-against their plain versions, and the card's index build and alignments
-against the CPU's.
+against their plain versions, and the card's index build (the over-limit
+host route included), its sharded and data-parallel maps (the card
+listed twice) and its alignments against the CPU's.
 
 These tests need a card and skip without one. The card's machine has no
 JAX, so run them there without the JAX-importing conftest:
@@ -128,3 +129,51 @@ def test_aligner_card_equals_cpu(cuda, tmp_path):
         outs.append(open(out).read())
     assert dp.LAUNCHES > before
     assert outs[0] and outs[0] == outs[1]
+
+
+def _small_map(tmp_path, devices, shard):
+    """A small pangenome's self-map through map_files on `devices`;
+    returns the PAF and the Mapper's theta launches."""
+    from mashmap_tpu_torch.api import map_files
+    from mashmap_tpu_torch.params import Parameters
+    ref = str(tmp_path / "ref.fa")
+    if not os.path.exists(ref):
+        write_fasta(ref, pangenome(3, 60_000, 0.05, seed=13))
+    tag = "-".join(str(d) for d in devices) + f"-{shard}"
+    out = str(tmp_path / f"{tag}.paf")
+    p = Parameters(ref_sequences=[ref], out_file_name=out, kmer_size=15,
+                   seg_length=2000, sketch_size=60, percentage_identity=0.85,
+                   skip_prefix=True, prefix_delim="#", batch_fragments=64,
+                   no_progress=True, shard_index=shard)
+    map_files(p, devices=devices)
+    return open(out).read()
+
+
+@pytest.mark.parametrize("shard", [True, False])
+def test_two_entries_on_one_card_equal_cpu(cuda, tmp_path, shard):
+    """The sharded index and the replicated data-parallel path with the
+    card listed twice write the CPU's single-device PAF."""
+    want = _small_map(tmp_path, ["cpu"], False)
+    got = _small_map(tmp_path, [cuda, cuda], shard)
+    assert want.count("\n") > 3 and got == want
+
+
+def test_over_limit_host_route_on_card_equals_cpu(cuda):
+    """A contig over the rank limit: its host route on the card (theta
+    kernel launched) equals the CPU's host route and the card's device
+    route."""
+    contigs = [("big", random_genome(400_000, seed=41)),
+               ("small", random_genome(30_000, seed=42))]
+    before = tt.LAUNCHES
+    a = builder.build_index(contigs, 15, 2000, 60, rank_limit=100_000,
+                            device=cuda)
+    assert tt.LAUNCHES > before
+    b = builder.build_index(contigs, 15, 2000, 60, rank_limit=100_000,
+                            device="cpu")
+    c = builder.build_index(contigs, 15, 2000, 60, device=cuda)
+    for f in builder._NPZ_FIELDS:
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                      err_msg=f)
+        np.testing.assert_array_equal(getattr(a, f), getattr(c, f),
+                                      err_msg=f)
+    assert a.freq_threshold == b.freq_threshold == c.freq_threshold

@@ -20,6 +20,7 @@ from mashmap_tpu_torch.params import Parameters, FILTER_ONETOONE
 sys.path.insert(0, os.path.dirname(__file__))
 from genomes import (mutate, pangenome, random_genome, revcomp,  # noqa
                      write_fasta)
+from port_fixtures import jax_native_reader, one_torch_thread  # noqa
 
 SMALL = dict(kmer_size=11, seg_length=500, sketch_size=30,
              percentage_identity=0.80, no_progress=True)

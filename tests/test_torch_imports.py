@@ -34,6 +34,10 @@ def _imported_roots(path):
 def test_no_module_imports_jax_or_the_jax_package():
     mods = list(_modules())
     assert len(mods) > 20
+    parallel = {os.path.basename(p) for p in mods
+                if os.path.basename(os.path.dirname(p)) == "parallel"}
+    assert parallel == {"__init__.py", "mesh.py", "sharded_index.py",
+                        "distributed.py"}
     bad = [(os.path.relpath(p, ROOT), r) for p in mods
            for r in _imported_roots(p) if r in FORBIDDEN]
     assert not bad, bad
@@ -45,7 +49,9 @@ def test_port_imports_with_jax_blocked():
             "import mashmap_tpu_torch.api, mashmap_tpu_torch.map.engine, "
             "mashmap_tpu_torch.cli, mashmap_tpu_torch.align.driver, "
             "mashmap_tpu_torch.align.cli, mashmap_tpu_torch.native, "
-            "mashmap_tpu_torch.progress; "
+            "mashmap_tpu_torch.progress, mashmap_tpu_torch.parallel.mesh, "
+            "mashmap_tpu_torch.parallel.sharded_index, "
+            "mashmap_tpu_torch.parallel.distributed; "
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "for m in sys.modules if sys.modules[m] is not None)")
     env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep

@@ -18,6 +18,8 @@ from mashmap_tpu_torch.io import fasta
 from mashmap_tpu_torch.kernels.kmers import sanitize
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(__file__))
+from port_fixtures import jax_native_reader  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")
