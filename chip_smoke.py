@@ -7,10 +7,10 @@ Phases, in order; any failure propagates and exits non-zero:
 
 1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: the theta kernels (kernels/csrc/theta.cu), the banded DP kernel
-   (align/csrc/banded_dp.cu) and the native FASTA reader, all started
-   together; each kernel instance's registers and spills from ptxas, and
-   which FASTA reader loaded (native or Python);
+2. build: the theta kernels (kernels/csrc/theta.cu), the banded DP trace
+   kernel (align/csrc/banded_dp_trace.cu) and the native FASTA reader,
+   all started together; each kernel instance's registers and spills
+   from ptxas, and which FASTA reader loaded (native or Python);
 3. kernel against plain version: theta_chunk on the card equals
    theta_chunk_ref exactly at the listed shapes and invalid fractions
    and at the schedule's edges (CHECK_EDGES), then on the block rows of
@@ -22,12 +22,15 @@ Phases, in order; any failure propagates and exits non-zero:
    the rows and the kernel's output, not counts taken in the kernel);
    the record carries the bound from the bytes and int32 operations
    these rows need;
-4. [dp-check]: banded_dp on the card equals banded_dp_rows_torch exactly
-   over the whole (B, P+1, W) at each of the aligner's four buckets, on
-   random pieces (B=64, 0-30% divergence, both free_start values) and the
-   edge pieces (tests/test_torch_dp_pieces.py); [dp-time]: at B=512 per bucket, the
-   kernel's ms (median of 20, CUDA events), the plain version's ms, the
-   rows' device-to-host ms, and the bound;
+4. [dp-check]: banded_dp_trace (the DP, its end state and its traceback
+   in one kernel) on the card equals banded_dp_trace_torch exactly, every
+   byte of every piece's record (result fields and ops), at each of the
+   aligner's four buckets, on random pieces (B=64, 0-30% divergence, both
+   free_start and free_end values) and the edge pieces
+   (tests/test_torch_dp_pieces.py); [dp-time]: per bucket at B=512 and at
+   the aligner's batch, the kernel's ms (median of 20, CUDA events), the
+   records' device-to-host ms, the plain version's ms, and the bound from
+   these pieces' rows and paths;
 5. main path: build_or_load_index + map_files on "cuda" with bench.py's
    parameters on its 6 Mbp pangenome (4 x 1.5 Mbp), theta launches
    counted, and the reference's CI coverage gate (every sequence >= 0.92);
@@ -42,9 +45,11 @@ Phases, in order; any failure propagates and exits non-zero:
    with --legacy for the aligner;
 8. [align]: the aligner's main path, `align.cli.main` on the pangenome and
    that legacy mapping at --pi 85 on "cuda", DP launches counted: rows,
-   pieces per bucket and to the host DP, the DP's device ms, the rows'
-   copy ms, host ms, wall s and aligned query Mbp/s; at least one output
-   row per query haplotype; then once more under torch.profiler;
+   pieces per bucket and to the host DP, the DP kernel's device ms, the
+   records' copy ms, host ms (anchors, the records' unpacking, host DP),
+   wall s and aligned query Mbp/s; at least one output row per query
+   haplotype, and the output's sha256 equal to ALIGN_SHA256; then once
+   more under torch.profiler;
    [align-small]: on the small pangenome, its legacy mapping aligned on
    the card and on the CPU gives the same bytes;
 9. the parallel layer, on the card listed twice: [shard] the main path's
@@ -119,6 +124,18 @@ DP_TIME_B = 512
 # and the row's masks are intervals of each row, fixed by loop bounds;
 # the scan's M - c and + c belong to one parallel form, not to the work.
 DP_OPS_PER_CELL = 7
+# and per step of the traceback: the substitution compare and the move
+DP_OPS_PER_STEP = 2
+
+# sha256 of the [align] output (the pangenome's legacy self-map aligned
+# at --pi 85) as the aligner wrote it on the card while the traceback ran
+# on the host over the DP rows (scripts/align_bench.py on the parent
+# design; PERF.md): the kernel must not move a byte
+ALIGN_SHA256 = ("2f38cf26095840eab8b8ffeb58a286a4"
+                "b37f6fb691a23113c94dbe532601c212")
+# that design's [align] split on an H100 80GB HBM3 at 700 W (PERF.md, §5):
+# the rows' copy to the host and the host traceback, seconds
+ROWS_DESIGN_S = {"copy": 2.31, "traceback": 9.21}
 
 
 def coverage(paf_lines):
@@ -333,7 +350,8 @@ def print_ptxas(log):
     name = None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '\w*?"
-                      r"(theta_\w+?_kernel|banded_dp_kernel)ILi(\d+)E", line)
+                      r"(theta_\w+?_kernel|banded_dp_trace_kernel)ILi(\d+)E",
+                      line)
         if m:
             name, spill = f"{m.group(1)}<{m.group(2)}>", "spills not read"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -594,41 +612,54 @@ def card_vs_cpu(fa, device):
 
 
 def check_dp(device):
-    """banded_dp against banded_dp_rows_torch on the card, exactly, over
-    the whole (B, P+1, W) at each bucket, on random and edge pieces;
-    returns the largest absolute difference (0)."""
+    """banded_dp_trace against banded_dp_trace_torch on the card, exactly:
+    every byte of every piece's record (its result fields and its ops), at
+    each bucket, on random and edge pieces; returns the largest absolute
+    difference of a result field or an op byte (0)."""
+    import numpy as np
     import torch
     from mashmap_tpu_torch.align import kernel as K
     from mashmap_tpu_torch.align.driver import PIECE_BUCKETS
-    from test_torch_dp_pieces import dp_edge_pieces, dp_pieces
+    from test_torch_dp_pieces import dp_edge_pieces, dp_pieces, free_ends
     worst = 0
     for P, W in PIECE_BUCKETS:
         for kind, arrays in (("random", dp_pieces(P, W, DP_CHECK_B, P + W)),
                              ("edges", dp_edge_pieces(P, W))):
-            t = K.dp_inputs(*arrays, device)
-            got = K.banded_dp(*t, p_len=P, width=W)
-            want = K.banded_dp_rows_torch(*t, p_len=P, width=W)
+            B = len(arrays[2])
+            t = K.dp_inputs(*arrays, free_ends(B), device)
+            got = K.banded_dp_trace(*t, p_len=P, width=W)
+            want = K.banded_dp_trace_torch(*t, p_len=P, width=W)
             torch.cuda.synchronize()
-            err = max_abs_err(got.to(torch.int32), want.to(torch.int32))
-            print(f"[dp-check] P={P} W={W} {kind} B={t[0].shape[0]}: "
-                  f"max_abs_err={err} over {got.numel()} cells")
-            if err != 0 or not torch.equal(got.to(torch.int32),
-                                           want.to(torch.int32)):
+            (gr, go), (wr, wo) = (K.unpack_trace(x.cpu().numpy(), P, W)
+                                  for x in (got, want))
+            err = max(int(np.abs(g.astype(np.int64) - w).max())
+                      for g, w in ((gr, wr), (go, wo)))
+            ok = wr[:, K.RES_OK] != 0
+            print(f"[dp-check] P={P} W={W} {kind} B={B}: max_abs_err={err} "
+                  f"over {got.numel()} record bytes; {int(ok.sum())} pieces "
+                  f"ok, {int(wr[:, K.RES_LEN].sum())} path bytes")
+            if err != 0 or not torch.equal(got, want):
                 raise AssertionError(
-                    f"banded_dp kernel disagrees with its plain version at "
-                    f"P={P} W={W} on {kind} pieces")
+                    f"banded_dp_trace kernel disagrees with its plain version "
+                    f"at P={P} W={W} on {kind} pieces")
+            if not ok.any():
+                raise AssertionError(f"[dp-check] no walk at P={P} W={W}")
             worst = max(worst, err)
     return worst
 
 
-def dp_bound_ms(B, P, W, R):
-    """The least time the card could take for banded_dp on B pieces: the
-    inputs read once and the (B, P+1, W) uint16 rows written once, over
-    the HBM rate; DP_OPS_PER_CELL int32 operations per computed cell
-    (P rows of W, row 0 aside), over the int32 rate. Returns (ms, "bytes"
-    or "operations", bytes, operations)."""
-    n_bytes = B * (P + 1) * W * 2 + B * (P + R) + B * (3 * 4 + 1)
-    n_ops = DP_OPS_PER_CELL * B * P * W
+def dp_bound_ms(n, path_len, P, W, R, rec_bytes):
+    """The least time the card could take for banded_dp_trace on these
+    pieces: the inputs read once (q, r, n, m, lo and both flags) and the
+    records written once, over the HBM rate; DP_OPS_PER_CELL int32
+    operations per cell of rows 1..n of each piece, one compare per cell
+    of row n (the end state), and DP_OPS_PER_STEP per step of the paths
+    these pieces took, over the int32 rate. Returns (ms, "bytes" or
+    "operations", bytes, operations)."""
+    B = len(n)
+    n_bytes = B * (P + R) + B * (3 * 4 + 2) + B * rec_bytes
+    n_ops = (DP_OPS_PER_CELL * W * int(n.sum()) + W * B
+             + DP_OPS_PER_STEP * int(path_len.sum()))
     t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
     t_ops = 1e3 * n_ops / INT32_OPS_PER_S
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
@@ -636,33 +667,41 @@ def dp_bound_ms(B, P, W, R):
 
 
 def dp_time(device, kernel_reps=20, plain_reps=3, copy_reps=3):
-    """Per bucket at B = DP_TIME_B random pieces: the kernel's ms (median
-    of kernel_reps by CUDA events), the plain version's ms, the rows'
-    device-to-host ms and the bound. Returns {(P, W): record}."""
+    """Per bucket, on random pieces at B = DP_TIME_B and at the aligner's
+    batch for the bucket: the kernel's ms (median of kernel_reps by CUDA
+    events), the records' device-to-host ms, the plain version's ms and
+    the bound. Returns {(P, W, B): record}."""
     import torch
+    from mashmap_tpu_torch.align import driver
     from mashmap_tpu_torch.align import kernel as K
-    from mashmap_tpu_torch.align.driver import PIECE_BUCKETS
-    from test_torch_dp_pieces import dp_pieces
+    from test_torch_dp_pieces import dp_pieces, free_ends
     recs = {}
-    for P, W in PIECE_BUCKETS:
-        t = K.dp_inputs(*dp_pieces(P, W, DP_TIME_B, 7 * P + W), device)
-        out = {}
-        ms = time_ms(lambda: out.update(
-            got=K.banded_dp(*t, p_len=P, width=W)), kernel_reps)
-        plain_ms = time_ms(lambda: K.banded_dp_rows_torch(
-            *t, p_len=P, width=W), plain_reps, warmup=0)
-        d2h_ms = time_ms(lambda: out["got"].cpu(), copy_reps, warmup=0)
-        bound_ms, bound_by, n_bytes, n_ops = dp_bound_ms(
-            DP_TIME_B, P, W, t[1].shape[1])
-        print(f"[dp-time] P={P} W={W} B={DP_TIME_B}: kernel {ms} ms, "
-              f"plain {plain_ms} ms, rows to host {d2h_ms} ms; bound "
-              f"{bound_ms} ms by {bound_by} (bytes {n_bytes}, int32 "
-              f"operations {n_ops}); kernel/bound {ms / bound_ms}")
-        recs[(P, W)] = {"P": P, "W": W, "B": DP_TIME_B, "ms": ms,
-                        "plain_ms": plain_ms, "d2h_ms": d2h_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by}
-        del out, t
-        torch.cuda.empty_cache()
+    for P, W in driver.PIECE_BUCKETS:
+        for B in sorted({DP_TIME_B, driver.BATCH[(P, W)]}):
+            arrays = dp_pieces(P, W, B, 7 * P + W)
+            t = K.dp_inputs(*arrays, free_ends(B), device)
+            out = {}
+            ms = time_ms(lambda: out.update(
+                got=K.banded_dp_trace(*t, p_len=P, width=W)), kernel_reps)
+            d2h_ms = time_ms(lambda: out["got"].cpu(), copy_reps, warmup=0)
+            plain_ms = time_ms(lambda: K.banded_dp_trace_torch(
+                *t, p_len=P, width=W), plain_reps, warmup=0)
+            res, _ = K.unpack_trace(out["got"].cpu().numpy(), P, W)
+            bound_ms, bound_by, n_bytes, n_ops = dp_bound_ms(
+                arrays[2], res[:, K.RES_LEN], P, W, t[1].shape[1],
+                out["got"].shape[1])
+            print(f"[dp-time] P={P} W={W} B={B}: kernel {ms} ms, records "
+                  f"to host {d2h_ms} ms, plain {plain_ms} ms; bound "
+                  f"{bound_ms} ms by {bound_by} (bytes {n_bytes}, int32 "
+                  f"operations {n_ops}); kernel/bound {ms / bound_ms}; "
+                  f"rows {int(arrays[2].sum())}, ok "
+                  f"{int(res[:, K.RES_OK].sum())}, path steps "
+                  f"{int(res[:, K.RES_LEN].sum())}")
+            recs[(P, W, B)] = {"P": P, "W": W, "B": B, "ms": ms,
+                               "plain_ms": plain_ms, "d2h_ms": d2h_ms,
+                               "bound_ms": bound_ms, "bound_by": bound_by}
+            del out, t
+            torch.cuda.empty_cache()
     return recs
 
 
@@ -726,8 +765,15 @@ def _align_run(fa, mapping, out, device):
     return got[0], wall
 
 
+def sha256(path):
+    import hashlib
+    with open(path, "rb") as fh:
+        return hashlib.sha256(fh.read()).hexdigest()
+
+
 def align_phase(fa, mapping, device, names):
-    """The aligner's main path on the card, DP launches counted; returns
+    """The aligner's main path on the card, DP launches counted; its
+    output must be the bytes ALIGN_SHA256 fingerprints. Returns
     (launches, stats)."""
     from mashmap_tpu_torch.align import kernel as K
     out = os.path.join(DATA, "smoke_align.aln")
@@ -742,11 +788,14 @@ def align_phase(fa, mapping, device, names):
           f"per bucket {st.pieces}, pieces to the host DP "
           f"{st.host_pieces}, DP launches {launches} (calls "
           f"{st.dp_calls})")
-    print(f"[align] DP kernel device {st.dp_ms} ms, rows to host "
+    print(f"[align] DP kernel device {st.dp_ms} ms, records to host "
           f"{st.d2h_ms} ms, host {host_ms} ms (anchors "
           f"{1e3 * st.anchor_s}, traceback {1e3 * st.traceback_s}, host DP "
           f"{1e3 * st.host_dp_s}), wall {wall} s, aligned query "
           f"{q_bp} bp, {q_bp / 1e6 / wall} Mbp/s")
+    print(f"[align] copy to host {st.d2h_ms / 1e3} s and host traceback "
+          f"{st.traceback_s} s; with the rows on the host (PERF.md): "
+          f"{ROWS_DESIGN_S['copy']} s and {ROWS_DESIGN_S['traceback']} s")
     if launches <= 0:
         raise AssertionError("the aligner's main path launched no DP kernel")
     with open(out) as fh:
@@ -754,6 +803,11 @@ def align_phase(fa, mapping, device, names):
     missing = [n for n in names if n not in got]
     if missing:
         raise AssertionError(f"no alignment row for queries {missing}")
+    digest = sha256(out)
+    print(f"[align] output sha256 {digest}, expected {ALIGN_SHA256}")
+    if digest != ALIGN_SHA256:
+        raise AssertionError("the alignment output differs from the bytes "
+                             "the rows design wrote on the card")
     return launches, st
 
 
@@ -1005,7 +1059,8 @@ def build_all():
         jobs = [ex.submit(theta.load_library), ex.submit(dp.load_library),
                 ex.submit(native.native_available)]
         have_native = [j.result() for j in jobs][-1]
-    print(f"[build] theta.cu, banded_dp.cu and the native reader built and "
+    print(f"[build] theta.cu, banded_dp_trace.cu and the native reader built "
+          f"and "
           f"loaded in {time.perf_counter() - t0} s")
     print_ptxas(theta.ptxas_log_path())
     print_ptxas(dp.ptxas_log_path())
@@ -1080,13 +1135,17 @@ def main():
            "launches": launches,
            "max_abs_err": max(err, rec.pop("max_abs_err")), **rec,
            "launches_by_path": by_path}
-    # the banded DP's top-level times are those of the bucket that took
-    # the most pieces on the aligner's main path; "buckets" has all four
-    top = max(dp_recs, key=lambda b: st.pieces.get(b, 0))
-    dp_rec = {"name": "banded_dp", "route": "cuda",
-              "source": "mashmap_tpu_torch/align/csrc/banded_dp.cu",
+    # the DP's top-level times are those of the bucket that took the most
+    # pieces on the aligner's main path, at the aligner's batch there;
+    # "buckets" has every bucket at B=512 and at that batch
+    from mashmap_tpu_torch.align.driver import BATCH
+    P, W = max(BATCH, key=lambda b: st.pieces.get(b, 0))
+    top = (P, W, BATCH[(P, W)])
+    dp_rec = {"name": "banded_dp_trace", "route": "cuda",
+              "source": "mashmap_tpu_torch/align/csrc/banded_dp_trace.cu",
               "replaces": "mashmap_tpu/align/kernel.py:48 (jit lax.scan, "
-                          "not Pallas)",
+                          "not Pallas), with the host end state and "
+                          "traceback_batch (:171) that read its rows",
               "launches": dp_launches, "max_abs_err": dp_err,
               "ms": dp_recs[top]["ms"],
               "plain_ms": dp_recs[top]["plain_ms"],

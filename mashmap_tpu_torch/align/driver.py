@@ -19,10 +19,12 @@ unless the caller passes ``device="cpu"``). Behavioral contract
   query, 'D' consumes the target; matches and mismatches both 'M').
 
 Pipeline per batch of rows: anchor chains (host numpy, anchors.py) ->
-DP pieces bucketed by (padded length, band width) -> the banded DP
-(kernel.py: the CUDA kernel on a card, its plain version on the CPU) ->
-host traceback -> CIGAR stitch through anchors. Pieces that no bucket
-fits take the unbanded host DP (``_run_host``), as in the JAX package.
+DP pieces bucketed by (padded length, band width) -> the banded DP, its
+end state and its traceback (kernel.py::banded_dp_trace: the CUDA kernel
+on a card, so only each piece's result and edit path come back to the
+host; its plain version on the CPU) -> CIGAR stitch through anchors.
+Pieces that no bucket fits take the unbanded host DP (``_run_host``), as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -52,7 +54,12 @@ PIECE_BUCKETS: tuple[tuple[int, int], ...] = (
 )
 MAX_P = PIECE_BUCKETS[-1][0]
 MAX_W = PIECE_BUCKETS[-1][1]
-BATCH = 512          # pieces per device call
+# pieces per device call, by bucket: a one-warp piece of the narrow
+# buckets fills little of an SM, so they take more pieces a call; the
+# records (not the rows) come back, so memory does not bound them. Each
+# piece is independent, so the batch moves no output byte.
+BATCH = {(256, 64): 4096, (256, 128): 4096, (1024, 256): 512,
+         (4096, 1024): 512}
 ANCHOR_K = 21
 ANCHOR_SPACING = 192
 
@@ -61,10 +68,13 @@ ANCHOR_SPACING = 192
 class AlignStats:
     """What one Aligner's runs did: counts, and where the time went.
 
-    ``dp_ms`` is the DP's device time by CUDA events on a card and its
-    host time on the CPU; ``d2h_ms`` the rows' copy to the host (0 on
-    the CPU); ``anchor_s``, ``traceback_s`` and ``host_dp_s`` host
-    clocks."""
+    ``dp_ms`` is the fused DP, end state and traceback kernel's device
+    time by CUDA events on a card, and its plain version's host time on
+    the CPU (the walk included); ``d2h_ms`` the copy of its records (each
+    piece's result and edit path) to the host, 0 on the CPU;
+    ``traceback_s`` the host's unpacking of the records into the pieces
+    (reversing each path, the free-start prefix, the retry queue);
+    ``anchor_s`` and ``host_dp_s`` host clocks."""
 
     rows_in: int = 0
     rows_out: int = 0
@@ -229,26 +239,26 @@ def _band_lo(piece: _Piece, W: int) -> int:
     return min(0, d) - (W - abs(d) - 1) // 2
 
 
-def _dp_rows(q, r, n, m, lo, fs, P, W, device, stats):
-    """The bucket's DP rows on the host: the kernel on a card (timed by
-    CUDA events, and its rows' copy to the host), the plain version on
-    the CPU (timed by the host clock)."""
-    t = K.dp_inputs(q, r, n, m, lo, fs, device)
+def _dp_trace(q, r, n, m, lo, fs, fe, P, W, device, stats):
+    """The bucket's records (kernel.py::banded_dp_trace) on the host: the
+    kernel on a card (timed by CUDA events, and the records' copy to the
+    host), the plain version on the CPU (timed by the host clock)."""
+    t = K.dp_inputs(q, r, n, m, lo, fs, fe, device)
     if device.type != "cuda":
         t0 = time.perf_counter()
-        rows = K.banded_dp(*t, p_len=P, width=W)
+        rec = K.banded_dp_trace(*t, p_len=P, width=W)
         stats.dp_ms += 1e3 * (time.perf_counter() - t0)
-        return rows.numpy()
+        return rec.numpy()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     ev[0].record()
-    rows = K.banded_dp(*t, p_len=P, width=W)
+    rec = K.banded_dp_trace(*t, p_len=P, width=W)
     ev[1].record()
-    rows = rows.cpu()
+    rec = rec.cpu()
     ev[2].record()
     ev[2].synchronize()
     stats.dp_ms += ev[0].elapsed_time(ev[1])
     stats.d2h_ms += ev[1].elapsed_time(ev[2])
-    return rows.numpy()
+    return rec.numpy()
 
 
 def _run_bucket(pieces: Sequence[_Piece], P: int, W: int, device,
@@ -256,8 +266,9 @@ def _run_bucket(pieces: Sequence[_Piece], P: int, W: int, device,
     """Run one (P, W) bucket; returns pieces needing escalation."""
     retry: list[_Piece] = []
     stats.pieces[(P, W)] = stats.pieces.get((P, W), 0) + len(pieces)
-    for ofs in range(0, len(pieces), BATCH):
-        chunk = pieces[ofs:ofs + BATCH]
+    batch = BATCH.get((P, W), 512)
+    for ofs in range(0, len(pieces), batch):
+        chunk = pieces[ofs:ofs + batch]
         B = len(chunk)
         q = np.zeros((B, P), np.uint8)
         r = np.zeros((B, P + W), np.uint8)
@@ -265,48 +276,41 @@ def _run_bucket(pieces: Sequence[_Piece], P: int, W: int, device,
         m = np.zeros(B, np.int32)
         lo = np.zeros(B, np.int32)
         fs = np.zeros(B, bool)
+        fe = np.zeros(B, bool)
         for b, p in enumerate(chunk):
             q[b, :len(p.q)] = p.q
             r[b, :len(p.r)] = p.r
             n[b], m[b] = len(p.q), len(p.r)
             lo[b] = _band_lo(p, W)
-            fs[b] = p.free_start
-        rows = _dp_rows(q, r, n, m, lo, fs, P, W, device, stats)
+            fs[b], fe[b] = p.free_start, p.free_end
+        rec = _dp_trace(q, r, n, m, lo, fs, fe, P, W, device, stats)
         stats.dp_calls += 1
 
         t0 = time.perf_counter()
-        # vectorized end-state extraction + escalation test
-        row_n = rows[np.arange(B), n].astype(np.int32)   # (B, W)
-        cc = np.arange(W)[None, :] + (n + lo)[:, None]   # j per column
-        row_n = np.where((cc >= 0) & (cc <= m[:, None]), row_n, K.CAP)
-        fe = np.array([p.free_end for p in chunk])
-        c_end = np.where(fe, np.argmin(row_n, axis=1), m - n - lo)
-        in_band = (c_end >= 0) & (c_end < W)
-        e = np.where(in_band,
-                     row_n[np.arange(B), np.clip(c_end, 0, W - 1)],
-                     K.CAP)
-        d = m - n
-        slack = np.minimum(np.minimum(0, d) - lo,
-                           (lo + W - 1) - np.maximum(0, d))
-        # any path cheaper than e deviates < e from the end diagonals,
-        # so band slack >= e proves optimality; otherwise widen
-        ok = in_band & (e < K.CAP) & (e <= slack)
+        res, ops = K.unpack_trace(rec, P, W)
+        ok = res[:, K.RES_OK] != 0
+        # any path cheaper than e deviates < e from the end diagonals, so
+        # band slack >= e proves optimality; otherwise widen
         for b in np.nonzero(~ok)[0]:
             chunk[b].min_w = 2 * W
             retry.append(chunk[b])
-
-        sel = np.nonzero(ok)[0]
-        if len(sel):
-            end_j = np.where(fe, c_end + n + lo, m)[sel]
-            ops_list, start_j = K.traceback_batch(
-                rows[sel], q[sel], r[sel], n[sel], m[sel], lo[sel],
-                fs[sel], end_j)
-            for k_, b in enumerate(sel):
-                p = chunk[b]
-                p.ops = ops_list[k_]
-                p.start_j = int(start_j[k_])
-                p.end_j = int(end_j[k_])
-                p.edit = int(e[b])
+        dead = np.nonzero(ok & (res[:, K.RES_DEAD] != 0))[0]
+        if len(dead):
+            raise AssertionError(
+                f"traceback dead end in pieces {dead[:4]} (band too "
+                f"narrow?)")
+        for b in np.nonzero(ok)[0]:
+            p = chunk[b]
+            o = ops[b, :res[b, K.RES_LEN]][::-1]
+            start_j = int(res[b, K.RES_START_J])
+            if not p.free_start and start_j > 0:
+                # consume the remaining target prefix
+                o = np.concatenate([np.full(start_j, K.OP_DEL, np.uint8), o])
+                start_j = 0
+            p.ops = np.ascontiguousarray(o)
+            p.start_j = start_j
+            p.end_j = int(res[b, K.RES_END_J])
+            p.edit = int(res[b, K.RES_E])
         stats.traceback_s += time.perf_counter() - t0
     return retry
 
@@ -526,7 +530,7 @@ def align_files(ref_files: Sequence[str], query_files: Sequence[str],
     st = aligner.stats
     logger.info(
         "aligned %d of %d rows on %s; pieces per bucket %s, host DP %d; "
-        "DP %.3f ms in %d calls, rows to host %.3f ms; anchors %.3f s, "
+        "DP %.3f ms in %d calls, records to host %.3f ms; anchors %.3f s, "
         "traceback %.3f s, host DP %.3f s", st.rows_out, st.rows_in,
         aligner.device, st.pieces, st.host_pieces, st.dp_ms, st.dp_calls,
         st.d2h_ms, st.anchor_s, st.traceback_s, st.host_dp_s,

@@ -20,19 +20,21 @@ from mashmap_tpu_torch.cli import main as map_main
 HERE = os.path.dirname(__file__)
 sys.path.insert(0, HERE)
 from genomes import mutate, random_genome, revcomp, write_fasta  # noqa
-from test_torch_dp_pieces import dp_edge_pieces, dp_pieces  # noqa: E402
+from test_torch_dp_pieces import (dp_edge_pieces, dp_pieces,  # noqa
+                                  free_ends)
 from port_fixtures import jax_native_reader, one_torch_thread  # noqa
 
 
 @pytest.mark.parametrize("P,W", [(64, 32), (256, 64)])
 @pytest.mark.parametrize("kind", ["random", "edges"])
 def test_plain_dp_matches_jax_and_host(P, W, kind):
-    """banded_dp on CPU tensors (the plain version) == JAX banded_dp_rows
-    == banded_dp_rows_host over the whole (B, P+1, W)."""
+    """The plain version's rows (banded_dp_rows_torch on CPU tensors) ==
+    JAX banded_dp_rows == banded_dp_rows_host over the whole
+    (B, P+1, W)."""
     arrays = (dp_pieces(P, W, 24, P + W) if kind == "random"
               else dp_edge_pieces(P, W))
-    got = K.banded_dp(*K.dp_inputs(*arrays, "cpu"), p_len=P,
-                      width=W)
+    t = K.dp_inputs(*arrays, free_ends(len(arrays[2])), "cpu")
+    got = K.banded_dp_rows_torch(*t[:6], p_len=P, width=W)
     assert got.dtype.itemsize == 2
     got = got.numpy()
     want = np.asarray(JK.banded_dp_rows(*arrays, p_len=P, width=W))
@@ -40,20 +42,22 @@ def test_plain_dp_matches_jax_and_host(P, W, kind):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(
         got, K.banded_dp_rows_host(*arrays, p_len=P, width=W))
-    np.testing.assert_array_equal(
-        got, K.banded_dp_rows(*arrays, p_len=P, width=W, device="cpu"))
 
 
 def test_dp_wrapper_rejects_bad_inputs():
     import torch
-    t = K.dp_inputs(*dp_pieces(64, 32, 4, 1), "cpu")
+    t = K.dp_inputs(*dp_pieces(64, 32, 4, 1), free_ends(4), "cpu")
     with pytest.raises(TypeError, match="int32"):
-        K.banded_dp(t[0], t[1], t[2].long(), *t[3:], p_len=64, width=32)
+        K.banded_dp_trace(t[0], t[1], t[2].long(), *t[3:], p_len=64,
+                          width=32)
+    with pytest.raises(TypeError, match="free_end must be torch.bool"):
+        K.banded_dp_trace(*t[:6], t[6].to(torch.uint8), p_len=64,
+                          width=32)
     with pytest.raises(ValueError, match="q must be"):
-        K.banded_dp(*t, p_len=63, width=32)
+        K.banded_dp_trace(*t, p_len=63, width=32)
     with pytest.raises(ValueError, match="contiguous"):
-        K.banded_dp(t[0], torch.zeros((96, 4), dtype=torch.uint8).t(),
-                    *t[2:], p_len=64, width=32)
+        K.banded_dp_trace(t[0], torch.zeros((96, 4), dtype=torch.uint8).t(),
+                          *t[2:], p_len=64, width=32)
 
 
 def _genome_pair(seed, div):
@@ -93,7 +97,7 @@ def test_tracebacks_match_jax():
     P, W = 64, 32
     arrays = dp_pieces(P, W, 16, 5)
     q, r, n, m, lo, fs = arrays
-    rows = K.banded_dp_rows(*arrays, p_len=P, width=W, device="cpu")
+    rows = K.banded_dp_rows_host(*arrays, p_len=P, width=W)
     end_j = m.astype(np.int64)
     ok = (rows[np.arange(16), n, m - n - lo] < K.CAP)
     sel = np.nonzero(ok)[0]

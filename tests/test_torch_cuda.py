@@ -1,6 +1,6 @@
-"""The port on a CUDA card: the hand-written theta and banded DP kernels
-against their plain versions, and the card's index build (the over-limit
-host route included), its sharded and data-parallel maps (the card
+"""The port on a CUDA card: the hand-written theta and banded DP trace
+kernels against their plain versions, and the card's index build (the
+over-limit host route included), its sharded and data-parallel maps (the card
 listed twice) and its alignments against the CPU's.
 
 These tests need a card and skip without one. The card's machine has no
@@ -23,7 +23,8 @@ from mashmap_tpu_torch.kernels import theta as tt
 
 sys.path.insert(0, os.path.dirname(__file__))
 from genomes import mutate, pangenome, random_genome, write_fasta  # noqa
-from test_torch_dp_pieces import dp_edge_pieces, dp_pieces  # noqa: E402
+from test_torch_dp_pieces import (dp_edge_pieces, dp_pieces,  # noqa
+                                  free_ends)
 
 pytestmark = pytest.mark.cuda
 
@@ -96,18 +97,44 @@ def test_card_index_equals_cpu_index(cuda):
 @pytest.mark.parametrize("P,W", PIECE_BUCKETS)
 @pytest.mark.parametrize("kind", ["random", "edges"])
 def test_dp_kernel_matches_plain_version(cuda, P, W, kind):
-    """The banded DP kernel equals banded_dp_rows_torch over the whole
-    (B, P+1, W) at each of the aligner's buckets."""
+    """The fused DP, end state and traceback kernel writes the plain
+    version's records byte for byte (every per-piece result and every op
+    byte) at each of the aligner's buckets."""
     arrays = (dp_pieces(P, W, 64, P + W) if kind == "random"
               else dp_edge_pieces(P, W))
-    t = dp.dp_inputs(*arrays, cuda)
+    t = dp.dp_inputs(*arrays, free_ends(len(arrays[2])), cuda)
     before = dp.LAUNCHES
-    got = dp.banded_dp(*t, p_len=P, width=W)
+    got = dp.banded_dp_trace(*t, p_len=P, width=W)
     torch.cuda.synchronize()
     assert dp.LAUNCHES == before + 1
-    assert got.dtype == torch.uint16 and got.device.type == "cuda"
-    want = dp.banded_dp_rows_torch(*t, p_len=P, width=W)
-    assert torch.equal(got.to(torch.int32), want.to(torch.int32))
+    assert got.dtype == torch.uint8 and got.device.type == "cuda"
+    want = dp.banded_dp_trace_torch(*t, p_len=P, width=W)
+    assert torch.equal(got, want)
+    res, _ = dp.unpack_trace(got.cpu().numpy(), P, W)
+    assert res[:, dp.RES_OK].any()
+
+
+def test_aligner_without_kernel_raises(cuda, tmp_path, monkeypatch):
+    """On a card the aligner has no host route for the DP: when the
+    kernel cannot be built it raises."""
+    from mashmap_tpu_torch.align.driver import align_files
+    from mashmap_tpu_torch.kernels import nvcc
+
+    def no_nvcc(src, stem):
+        raise RuntimeError("nvcc failed")
+
+    ref, qf = str(tmp_path / "ref.fa"), str(tmp_path / "q.fa")
+    base = random_genome(3000, seed=8)
+    write_fasta(ref, [("c", base)])
+    write_fasta(qf, [("z", mutate(base, 0.05, seed=9))])
+    mp = str(tmp_path / "map.out")
+    with open(mp, "w") as fh:
+        fh.write("z 3000 0 2999 + c 3000 0 2999 95.0\n")
+    monkeypatch.setattr(dp, "_LIB", None)
+    monkeypatch.setattr(nvcc, "build", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        align_files([ref], [qf], mp, 80.0, str(tmp_path / "out.aln"),
+                    device=cuda)
 
 
 def test_aligner_card_equals_cpu(cuda, tmp_path):

@@ -2,8 +2,8 @@
 chip_smoke.py, and the check that they are pieces the aligner could
 hand the kernel.
 
-dp_pieces and dp_edge_pieces import numpy only, so chip_smoke.py can
-take them on a card's machine without JAX.
+dp_pieces, dp_edge_pieces and free_ends import numpy only, so
+chip_smoke.py can take them on a card's machine without JAX.
 """
 
 import types
@@ -12,11 +12,12 @@ import numpy as np
 
 
 def dp_pieces(P, W, B, seed):
-    """banded_dp's numpy inputs (q, r, n, m, lo, free_start) for B random
-    pieces of bucket (P, W), padded as the aligner pads them (R = P + W):
-    query lengths 1..P, target lengths within the band's reach of n, the
-    target a copy of the query with a 0-30% share of its bases redrawn,
-    free_start alternating, lo as align/driver.py::_band_lo sets it."""
+    """banded_dp_trace's numpy inputs (q, r, n, m, lo, free_start) for B
+    random pieces of bucket (P, W), padded as the aligner pads them
+    (R = P + W): query lengths 1..P, target lengths within the band's
+    reach of n, the target a copy of the query with a 0-30% share of its
+    bases redrawn, free_start alternating, lo as
+    align/driver.py::_band_lo sets it."""
     rng = np.random.default_rng(seed)
     acgt = np.frombuffer(b"ACGT", np.uint8)
     half = max(0, (W - 33) // 2)
@@ -38,7 +39,7 @@ def dp_pieces(P, W, B, seed):
 
 
 def dp_edge_pieces(P, W, seed=1):
-    """banded_dp's inputs for the edge pieces of bucket (P, W), each with
+    """banded_dp_trace's inputs for the edge pieces of bucket (P, W), each with
     free_start False and True: n = 1; n = P; m = P + W - 1 (the padded
     target's last byte); m < n; m = 0; and lo at its extremes (the band
     wholly at or below the diagonal, starting at j = m, wholly before
@@ -63,6 +64,12 @@ def dp_edge_pieces(P, W, seed=1):
             q[b, nn:] = 0
             r[b, mm:] = 0
     return q, r, n, m, lo, np.arange(B) % 2 == 1
+
+
+def free_ends(B):
+    """banded_dp_trace's free_end for B test pieces: with dp_pieces'
+    alternating free_start, every pair of the two flags in turn."""
+    return np.arange(B) // 2 % 2 == 1
 
 
 def _check_piece_shapes(arrays, P, W):
