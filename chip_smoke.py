@@ -7,15 +7,18 @@ Phases, in order; any failure propagates and exits non-zero:
 
 1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: the theta kernels (kernels/csrc/theta.cu), the banded DP trace
-   kernel (align/csrc/banded_dp_trace.cu) and the native FASTA reader,
-   all started together; each kernel instance's registers and spills
-   from ptxas, and which FASTA reader loaded (native or Python);
+2. build: the theta kernels (kernels/csrc/theta.cu for s <= 512,
+   kernels/csrc/theta_wide.cu above), the banded DP trace kernel
+   (align/csrc/banded_dp_trace.cu) and the native FASTA reader, all
+   started together; each kernel instance's registers and spills from
+   ptxas, and which FASTA reader loaded (native or Python);
 3. kernel against plain version: theta_chunk on the card equals
    theta_chunk_ref exactly at the listed shapes and invalid fractions
-   and at the schedule's edges (CHECK_EDGES), then on the block rows of
+   and at the schedule's edges (CHECK_EDGES, the wide kernel's sketch
+   sizes and both of its set routes included), then on the block rows of
    the main path's own input, where both are also timed (and the kernel
-   on the first 64 of those rows); each [theta] line is followed by the
+   on the first 64 of those rows), and the same at --pi 78 (s = 680,
+   the wide kernel); each [theta] line is followed by the
    segment length K, the chains, the resident warps per SM, the share
    of offsets where a set changed, and the shares where kernel B's rule
    merges in full and moves theta by one place (host predictions from
@@ -64,13 +67,31 @@ Phases, in order; any failure propagates and exits non-zero:
    rank limit of 2^28 positions) built through the host route at the
    default limit and through the device route at 2^30: every index
    array equal; both build times, peak device memory, and the host
-   route's theta launches.
+   route's theta launches;
+11. [wide-s]: sketch sizes above 512 through build_or_load_index and
+   map_files on the card, the index the whole pangenome's: (a) the main
+   path's flags at --pi 78 (auto s = 680, the cutoff filter on, its
+   table timed) with the postings cap lifted so the device map runs for
+   every fragment; (a') a cut of the queries at the default cap (the
+   host L1 route) and at the lifted one, the same PAF; (b) -J 3780
+   --pi 75 --noHgFilter (the auto s of a 3.1 Gbp reference at --pi 75)
+   on a cut of the queries; (c) -J 1790 --pi 78 --noHgFilter (the auto s
+   of that reference at --pi 78) on a cut of the queries, L2 calls on
+   the device cut by the L2 byte budget; (a) and (c) mapped again with
+   the budget lifted and at it, and (c) on the CPU, each the same PAF;
+   for each: build and map s, theta_wide.cu's
+   launches (> 0, and none of theta.cu), path_stats, peak device memory,
+   and the coverage gate; [small-pi78]: the small pangenome at --pi 78,
+   card (the lifted cap: the device route) == CPU (the default cap: the
+   host route).
 
 Each path's theta launches are counted from 0 just before it is driven
 and read just after; a path that launched none fails the run. The line
 before the last is the kernels' JSON record (theta's "launches" are the
-main path's, "launches_by_path" those of every path); the last line is
-{"ok": true, "device": {...}}. Without a CUDA device, or without the
+main path's, the wide kernel's those of [wide-s] (a); "launches_by_path"
+those of every path); the last line is {"ok": true, "device": {...}}.
+The cutoff tables go to a fresh $XDG_CACHE_HOME that the run removes,
+so every cold number is cold. Without a CUDA device, or without the
 rest of the repository beside it, the script fails before printing
 either.
 """
@@ -78,9 +99,11 @@ either.
 import contextlib
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -91,6 +114,29 @@ N_HAP, HAP_LEN, DIVERGENCE, SEED = 4, 1_500_000, 0.05, 2024
 SMALL = (3, 200_000, 0.05, 7)
 PI = 0.85
 BATCH = 1024
+# [wide-s]: --pi 78 gives this pangenome s = 680; -J 3780 is the auto s
+# of a 3.1 Gbp reference at --pi 75
+PI_WIDE = 0.78
+S_HUMAN, PI_HUMAN = 3780, 0.75
+# at s = 680 a fragment's sketch gathers about 1400 postings of this
+# pangenome, over the default cap of 1024, and every fragment takes the
+# host route (about 0.5 s each): (a) lifts the cap so that the device map
+# runs, and (a') maps WIDE_CUT_BP of queries at both caps. At s = 3780
+# a fragment takes the host route (tens of seconds), so (b) maps
+# HUMAN_CUT_BP of queries.
+WIDE_P_CAP = 8192
+WIDE_CUT_BP = 200_000
+HUMAN_CUT_BP = 5_000
+# (c): the auto s of a 3.1 Gbp reference at --pi 78, where about half
+# the L2 slices still fit L2_T_MAX and run on the device, each of those
+# calls cut by the L2 byte budget (uncut: 64 items, 7.5 GB an
+# intermediate at T = 8192); a fragment's sketch gathers more postings
+# than WIDE_P_CAP there
+S_HUMAN78, PI_HUMAN78 = 1790, 0.78
+L2_CUT_P_CAP = 16384
+L2_CUT_BP = 20_000
+# an L2 byte budget that cuts no call
+NO_L2_BUDGET = 1 << 62
 # one contig just over the default rank limit of 2^28 k-mer positions
 OVERLIMIT_BP = 270_000_000
 
@@ -109,6 +155,13 @@ CHECK_EDGES = (
     (32, 4982, 512, 0.02, None),    # s = S_MAX
     (1208, 4982, 310, 0.02, None),  # s of a human-scale reference
     (64, 300, 40, 0.85, 5000),      # sparse windows: RSENT thetas
+    # theta_wide.cu (s > 512)
+    (64, 4982, 513, 0.02, None),    # its first s
+    (64, 4982, 680, 0.02, None),    # a 6 Mbp reference at --pi 78
+    (32, 4982, 1110, 0.02, None),   # a 3.1 Gbp reference at --pi 80
+    (16, 4982, 3780, 0.02, None),   # ... and at --pi 75
+    (8, 400, 600, 0.0, None),       # S_B < s: every theta RSENT
+    (2, 17000, 16400, 0.0, 1 << 30),  # the sets in the device scratch
 )
 
 # one H100 SXM: HBM rate (NVIDIA's data sheet), and the int32 compare
@@ -171,12 +224,13 @@ def fasta(n_hap, length, divergence, seed):
     return path
 
 
-def params(fa, out):
+def params(fa, out, pi=PI, **kw):
     from mashmap_tpu_torch.params import Parameters
     return Parameters(ref_sequences=[fa], out_file_name=out,
-                      percentage_identity=PI, skip_prefix=True,
+                      percentage_identity=pi, skip_prefix=True,
                       prefix_delim="#", num_mappings_for_segment=1,
-                      batch_fragments=BATCH, no_progress=True).finalize()
+                      batch_fragments=BATCH, no_progress=True,
+                      **kw).finalize()
 
 
 def time_ms(fn, reps, warmup=1):
@@ -263,15 +317,17 @@ def theta_bound_ms(C, s_b, s, counts):
     """The least time the card could take for theta over these rows:
     cur and nxt read once and theta written once, over the HBM rate;
     the int32 operations these inputs need, over the int32 rate: one
-    compare per offset per set (does the rank enter it), s per
-    effective insert into either set (placing it in a sorted set of s
-    and shifting the rest; a binary search would compare fewer, the
-    shift moves up to s), and 2 per offset where a set changed (the
-    change against theta, and theta's neighbour in the union, which
-    a position kept per set finds in O(1); no merge is needed).
+    compare per offset per set (does the rank enter it), ceil(log2 s) + 1
+    per effective insert into either set (a balanced or indexed set of s
+    places the rank and evicts its largest in that many steps; a sorted
+    array's shift of up to s is a cost of the layout, not of the
+    function), and 2 per offset where a set changed (the change against
+    theta, and theta's neighbour in the union, which a position kept per
+    set finds in O(1); no merge is needed).
     Returns (ms, "bytes" or "operations")."""
     n_bytes = 3 * C * s_b * 4
-    n_ops = (s * (counts["ins_s"] + counts["ins_p"])
+    per_insert = (s - 1).bit_length() + 1
+    n_ops = (per_insert * (counts["ins_s"] + counts["ins_p"])
              + 2 * counts["changed"] + 2 * C * s_b)
     t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
     t_ops = 1e3 * n_ops / INT32_OPS_PER_S
@@ -350,7 +406,7 @@ def print_ptxas(log):
     name = None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '\w*?"
-                      r"(theta_\w+?_kernel|banded_dp_trace_kernel)ILi(\d+)E",
+                      r"(theta_\w+?_kernel|banded_dp_trace_kernel)IL[ib](\d+)E",
                       line)
         if m:
             name, spill = f"{m.group(1)}<{m.group(2)}>", "spills not read"
@@ -412,11 +468,16 @@ def theta_record(fa, p, device, kernel_reps=20, plain_reps=3):
                                    theta.SEG_K, out["got"].cpu().numpy())
     theta_schedule_line(C, s_b, s, counts)
     bound_ms, bound_by = theta_bound_ms(C, s_b, s, counts)
-    return {"name": "theta_chunk", "route": "cuda",
-            "source": "mashmap_tpu_torch/kernels/csrc/theta.cu",
-            "replaces": "mashmap_tpu/kernels/winnow_pallas.py:136",
+    wide = s > theta.S_MAX
+    return {"name": "theta_chunk_wide" if wide else "theta_chunk",
+            "route": "cuda",
+            "source": "mashmap_tpu_torch/kernels/csrc/"
+                      + ("theta_wide.cu" if wide else "theta.cu"),
+            "replaces": "mashmap_tpu/kernels/winnow_pallas.py:136"
+                        + (" (at s > 512)" if wide else ""),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "s": s}
 
 
 @contextlib.contextmanager
@@ -532,10 +593,9 @@ def main_path(fa, device):
     from mashmap_tpu_torch import stats
     from mashmap_tpu_torch.params import FIXED
     p = params(fa, os.devnull)
-    stats.sketch_cutoffs.cache_clear()
     t0 = time.perf_counter()
-    stats.sketch_cutoffs(p.sketch_size, p.kmer_size, p.ANIDiff,
-                         p.ANIDiffConf, FIXED.ss_table_max)
+    stats.compute_cutoffs(p.sketch_size, p.kmer_size, p.ANIDiff,
+                          p.ANIDiffConf, FIXED.ss_table_max)
     print(f"[main] set-up: cutoff table {time.perf_counter() - t0} s")
     return launches, paf
 
@@ -581,19 +641,29 @@ def print_profile(tag, phase, prof, wall_ms, top, mark):
             print(f"{tag} {phase}: {mark} {ms} ms x{n} {key[:40]}")
 
 
-def card_vs_cpu(fa, device):
-    """The index arrays and PAF bytes of `device` equal the CPU's."""
+def card_vs_cpu(fa, device, pi=PI, tag="[small]", card_kw=None):
+    """The index arrays and PAF bytes of `device` equal the CPU's at
+    --pi `pi` (the card's run with Parameters card_kw); returns the card
+    run's theta launches (theta.cu's, theta_wide.cu's)."""
     import numpy as np
     import torch
     from mashmap_tpu_torch.api import build_or_load_index, map_files
     from mashmap_tpu_torch.index.builder import _NPZ_FIELDS
+    from mashmap_tpu_torch.kernels import theta
     cpu = torch.device("cpu")
     runs = {}
     for dev in (device, cpu):
-        out = os.path.join(DATA, f"smoke_small_{dev.type}.paf")
-        p = params(fa, out)
+        out = os.path.join(DATA, f"smoke_small_{pi}_{dev.type}.paf")
+        kw = (card_kw or {}) if dev == device else {}
+        p = params(fa, out, pi, **kw)
+        theta.LAUNCHES = theta.WIDE_LAUNCHES = 0
+        t0 = time.perf_counter()
         idx = build_or_load_index(p, dev)
         map_files(p, index=idx, device=dev)
+        if dev == device:
+            launches = (theta.LAUNCHES, theta.WIDE_LAUNCHES)
+        print(f"{tag} {dev.type}: s={p.sketch_size} l1_postings_cap="
+              f"{p.l1_postings_cap} build + map {time.perf_counter() - t0} s")
         with open(out, "rb") as fh:
             runs[dev.type] = (idx, fh.read())
     (a, pa), (b, pb) = runs[device.type], runs["cpu"]
@@ -605,10 +675,14 @@ def card_vs_cpu(fa, device):
     if pa != pb:
         raise AssertionError("PAF differs from the CPU's")
     rows = pa.count(b"\n")
-    print(f"[small] {device.type} == cpu: {len(_NPZ_FIELDS)} index arrays, "
-          f"{rows} PAF rows, {len(pa)} bytes")
+    print(f"{tag} {device.type} == cpu: {len(_NPZ_FIELDS)} index arrays, "
+          f"{rows} PAF rows, {len(pa)} bytes; theta launches (theta.cu, "
+          f"theta_wide.cu) {launches}")
     if rows == 0:
         raise AssertionError("the small workload mapped nothing")
+    if sum(launches) <= 0:
+        raise AssertionError(f"{tag} launched no theta kernel")
+    return launches
 
 
 def check_dp(device):
@@ -1045,30 +1119,250 @@ def overlimit_phase(device, n_bp=OVERLIMIT_BP):
     return built["host_launches"]
 
 
+@contextlib.contextmanager
+def grab_mappers(got):
+    """Mapper.run appends its Mapper to got (to read path_stats and the
+    cutoff table of a map_files run)."""
+    from mashmap_tpu_torch.map import engine
+    run = engine.Mapper.run
+
+    def grab(self, *a, **kw):
+        got.append(self)
+        return run(self, *a, **kw)
+    engine.Mapper.run = grab
+    try:
+        yield
+    finally:
+        engine.Mapper.run = run
+
+
+def cut_fasta(fa, n_bp, tag):
+    """The first n_bp of fa's first record, under its own name, as a
+    FASTA of its own (a cut of the query set; the reference stays
+    whole)."""
+    from mashmap_tpu_torch.io import for_each_seq_in_file
+    from genomes import write_fasta
+    name, seq = next(iter(for_each_seq_in_file(fa)))
+    path = os.path.join(DATA, f"smoke_cut_{tag}.fa")
+    write_fasta(path, [(name, seq[:n_bp])])
+    return path
+
+
+def wide_map(tag, p, device, idx=None):
+    """build_or_load_index (unless idx is given) and map_files on the
+    card with theta launches counted from 0; prints and returns (index,
+    PAF, theta_wide.cu launches, Mapper, map s)."""
+    import torch
+    from mashmap_tpu_torch.api import build_or_load_index, map_files
+    from mashmap_tpu_torch.kernels import theta
+    peak_bytes(device)
+    theta.LAUNCHES = theta.WIDE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    if idx is None:
+        idx = build_or_load_index(p, device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    build_peak = peak_bytes(device)
+    mappers = []
+    with grab_mappers(mappers):
+        map_files(p, index=idx, device=device)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with open(p.out_file_name) as fh:
+        paf = fh.read()
+    print(f"[wide-s] {tag} s={p.sketch_size} pi={p.percentage_identity} "
+          f"l1_postings_cap={p.l1_postings_cap}: build_s={t1 - t0} "
+          f"map_s={t2 - t1} theta launches: theta_wide.cu "
+          f"{theta.WIDE_LAUNCHES}, theta.cu {theta.LAUNCHES}; "
+          f"paf_rows={paf.count(chr(10))} path_stats={mappers[0].path_stats} "
+          f"max_memory_allocated build={build_peak} map={peak_bytes(device)}")
+    if theta.LAUNCHES != 0:
+        raise AssertionError(f"[wide-s] {tag} launched theta.cu")
+    return idx, paf, theta.WIDE_LAUNCHES, mappers[0], t2 - t1
+
+
+@contextlib.contextmanager
+def l2_budget(n_bytes):
+    """map/engine.py's L2 byte budget set to n_bytes for the block."""
+    from mashmap_tpu_torch.map import engine
+    old = engine.L2_BYTES
+    engine.L2_BYTES = n_bytes
+    try:
+        yield
+    finally:
+        engine.L2_BYTES = old
+
+
+def budget_maps(tag, p, device, idx, want_paf):
+    """p mapped against idx on the card with the L2 byte budget lifted,
+    then at the module's budget again: each run's PAF must equal
+    want_paf (the run at the budget before these)."""
+    from mashmap_tpu_torch.map import engine
+    for what, n_bytes in (("lifted", NO_L2_BUDGET),
+                          ("default", engine.L2_BYTES)):
+        with l2_budget(n_bytes):
+            paf = wide_map(f"{tag} L2 budget {what} ({n_bytes} B)", p,
+                           device, idx)[1]
+        if paf != want_paf:
+            raise AssertionError(f"[wide-s] {tag} the PAF with the L2 "
+                                 f"budget {what} differs")
+    print(f"[wide-s] {tag} L2 budget lifted == default: the same PAF")
+
+
+def coverage_gate(tag, paf, names):
+    cov = coverage(paf.splitlines())
+    print(f"[wide-s] {tag} coverage min="
+          f"{min(cov.values()) if cov else 0.0} of {len(cov)}/{len(names)} "
+          f"sequences")
+    bad = {n: cov.get(n, 0.0) for n in names if cov.get(n, 0.0) < 0.92}
+    if bad:
+        raise AssertionError(f"[wide-s] {tag} coverage gate failed: {bad}")
+
+
+def wide_phase(fa, device, names):
+    """[wide-s]: sketch sizes above 512 on the card, through
+    build_or_load_index and map_files, the index always the whole
+    pangenome's. (a) --pi 78 (auto s = 680, cutoff filter on; its table
+    timed first) with l1_postings_cap lifted to WIDE_P_CAP, so that the
+    device map runs for every fragment; (a') a cut of the queries mapped
+    against (a)'s index at the default cap (every fragment takes the host
+    route) and at WIDE_P_CAP: the same PAF; (b) -J 3780 --pi 75
+    --noHgFilter on a cut of the queries (its one fragment overflows the
+    postings cap and takes the host route); (c) -J 1790 --pi 78
+    --noHgFilter on a cut of the queries, the cap lifted, so that L2
+    calls at a human-scale s run on the device, cut by the L2 byte budget
+    (the slices longer than L2_T_MAX replay on the host). (a) and (c) are
+    mapped again with the budget lifted and at it: the same PAF; (c) also
+    on the CPU: the same PAF. Each builds through theta_wide.cu alone and
+    passes the coverage gate. Returns the wide launches of (a), (b) and
+    (c)."""
+    import torch
+    from mashmap_tpu_torch import stats
+    from mashmap_tpu_torch.api import map_files
+    from mashmap_tpu_torch.params import FIXED, Parameters
+    print(f"[wide-s] card memory "
+          f"{torch.cuda.get_device_properties(device).total_memory} bytes")
+    # (a) the whole pangenome at s = 680
+    p = params(fa, os.path.join(DATA, "smoke_wide_a.paf"), PI_WIDE,
+               l1_postings_cap=WIDE_P_CAP)
+    t0 = time.perf_counter()
+    tbl = stats.sketch_cutoffs(p.sketch_size, p.kmer_size, p.ANIDiff,
+                               p.ANIDiffConf, FIXED.ss_table_max)
+    print(f"[wide-s] (a) cutoff table s={len(tbl) - 1} computed in "
+          f"{time.perf_counter() - t0} s")
+    idx, paf, launches_a, m, _ = wide_map("(a)", p, device)
+    coverage_gate("(a)", paf, names)
+    if launches_a <= 0:
+        raise AssertionError("[wide-s] (a) launched no theta_wide.cu")
+    l2_widths_line("(a)", p, m)
+    budget_maps("(a)", p, device, idx, paf)
+    # (a') a cut of the queries at the default cap and at WIDE_P_CAP
+    cut = cut_fasta(fa, WIDE_CUT_BP, "a")
+    pafs = []
+    for cap in (Parameters.l1_postings_cap, WIDE_P_CAP):
+        pc = params(fa, os.path.join(DATA, f"smoke_wide_cut_{cap}.paf"),
+                    PI_WIDE, query_sequences=[cut], l1_postings_cap=cap)
+        _, paf_c, _, m, map_s = wide_map(f"(a') cap {cap}", pc, device, idx)
+        n_frag = -(-WIDE_CUT_BP // pc.seg_length)
+        print(f"[wide-s] (a') cap {cap}: {m.path_stats['host_frags']} of "
+              f"{n_frag} fragments to the host L1 route, "
+              f"{map_s / n_frag} s a fragment")
+        pafs.append(paf_c)
+    if pafs[0] != pafs[1] or not pafs[0]:
+        raise AssertionError("[wide-s] (a') the host route's PAF differs "
+                             "from the device route's")
+    print("[wide-s] (a') host route PAF == device route PAF, byte for byte")
+    del idx
+    torch.cuda.empty_cache()
+    # (b) the whole pangenome's index at s = 3780, a cut of the queries
+    cut = cut_fasta(fa, HUMAN_CUT_BP, "b")
+    p = params(fa, os.path.join(DATA, "smoke_wide_b.paf"), PI_HUMAN,
+               sketch_size=S_HUMAN, stage1_topANI_filter=False,
+               query_sequences=[cut])
+    _, paf, launches_b, _, _ = wide_map("(b)", p, device)
+    coverage_gate("(b)", paf, names[:1])
+    if launches_b <= 0:
+        raise AssertionError("[wide-s] (b) launched no theta_wide.cu")
+    # (c) the whole pangenome's index at s = 1790, a cut of the queries:
+    # device L2 calls cut by the byte budget, then lifted, then the CPU
+    cut = cut_fasta(fa, L2_CUT_BP, "c")
+    kw = dict(sketch_size=S_HUMAN78, stage1_topANI_filter=False,
+              query_sequences=[cut], l1_postings_cap=L2_CUT_P_CAP)
+    p = params(fa, os.path.join(DATA, "smoke_wide_c.paf"), PI_HUMAN78, **kw)
+    idx, paf, launches_c, m, _ = wide_map("(c)", p, device)
+    coverage_gate("(c)", paf, names[:1])
+    if launches_c <= 0:
+        raise AssertionError("[wide-s] (c) launched no theta_wide.cu")
+    if not l2_widths_line("(c)", p, m):
+        raise AssertionError("[wide-s] (c) cut no L2 call on the card")
+    budget_maps("(c)", p, device, idx, paf)
+    pc = params(fa, os.path.join(DATA, "smoke_wide_c_cpu.paf"), PI_HUMAN78,
+                **kw)
+    t0 = time.perf_counter()
+    map_files(pc, index=idx, device=torch.device("cpu"))
+    with open(pc.out_file_name) as fh:
+        if fh.read() != paf:
+            raise AssertionError("[wide-s] (c) card PAF differs from the "
+                                 "CPU's")
+    print(f"[wide-s] (c) cpu map_s={time.perf_counter() - t0}; card PAF "
+          f"== CPU PAF")
+    return {"a": launches_a, "b": launches_b, "c": launches_c}
+
+
+def l2_widths_line(tag, p, m):
+    """Prints, for each L2 bucket the Mapper m filled, its items and the
+    call width (W_STEP, W_SMALL) at the L2 byte budget and without it;
+    returns whether the budget cut a call width of those buckets."""
+    from mashmap_tpu_torch.map import engine
+    area = p.l2_batch * p.l2_entries_cap // 2
+    cut = False
+    for T, n in sorted(m.path_stats["l2_buckets"].items()):
+        w = engine._l2_widths(area, T, p.sketch_size)
+        with l2_budget(NO_L2_BUDGET):
+            full = engine._l2_widths(area, T, p.sketch_size)
+        print(f"[wide-s] {tag} T={T}: {n} items, call width {w} "
+              f"(without the budget {full})")
+        cut |= w != full
+    return cut
+
+
 def build_all():
-    """Build the theta and banded DP kernels and the native FASTA reader,
-    all started together (each build is its own nvcc or g++ process);
-    print the time, each kernel instance's registers and spills, and
-    which reader loaded."""
+    """Build the theta kernels (both sources), the banded DP kernel and
+    the native FASTA reader, all started together (each build is its own
+    nvcc or g++ process); print the time, each kernel instance's
+    registers and spills, and which reader loaded."""
     from concurrent.futures import ThreadPoolExecutor
     from mashmap_tpu_torch import native
     from mashmap_tpu_torch.align import kernel as dp
     from mashmap_tpu_torch.kernels import theta
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
-        jobs = [ex.submit(theta.load_library), ex.submit(dp.load_library),
+    with ThreadPoolExecutor(4) as ex:
+        jobs = [ex.submit(theta.load_library),
+                ex.submit(theta.load_wide_library),
+                ex.submit(dp.load_library),
                 ex.submit(native.native_available)]
         have_native = [j.result() for j in jobs][-1]
-    print(f"[build] theta.cu, banded_dp_trace.cu and the native reader built "
-          f"and "
-          f"loaded in {time.perf_counter() - t0} s")
+    print(f"[build] theta.cu, theta_wide.cu, banded_dp_trace.cu and the "
+          f"native reader built and loaded in {time.perf_counter() - t0} s")
     print_ptxas(theta.ptxas_log_path())
+    print_ptxas(theta.ptxas_log_path(wide=True))
     print_ptxas(dp.ptxas_log_path())
     print(f"[build] FASTA reader: "
           f"{'native (C++)' if have_native else 'Python'}")
 
 
 def main():
+    """Run every phase with the cutoff tables in a fresh cache directory,
+    removed at the end."""
+    cache = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    os.environ["XDG_CACHE_HOME"] = cache
+    try:
+        return run()
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+
+
+def run():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1092,11 +1386,14 @@ def main():
     # 2. build
     build_all()
 
-    # 3. theta against its plain version, then times on the main path's rows
+    # 3. theta against its plain version, then times on the main path's
+    # rows, at s = 130 (theta.cu) and at --pi 78, s = 680 (theta_wide.cu)
     fa_main = fasta(N_HAP, HAP_LEN, DIVERGENCE, SEED)
     fa_small = fasta(*SMALL)
     err = check_theta(device)
     rec = theta_record(fa_main, params(fa_main, os.devnull), device)
+    wide_rec = theta_record(fa_main, params(fa_main, os.devnull, PI_WIDE),
+                            device)
 
     # 4. the banded DP against its plain version, then times per bucket
     dp_err = check_dp(device)
@@ -1130,11 +1427,26 @@ def main():
     # 10. a contig over the rank limit: host route == device route
     by_path["overlimit"] = overlimit_phase(device)
 
+    # 11. sketch sizes above 512: the pangenome at s = 680 and 3780, and
+    # the small one at s = 680 on the card and the CPU
+    wide_by_path = {f"wide-{k}": v
+                    for k, v in wide_phase(fa_main, device, names).items()}
+    # (the card maps on its device route, the CPU on the host route)
+    wide_by_path["small-pi78"] = card_vs_cpu(
+        fa_small, device, PI_WIDE, "[small-pi78]",
+        dict(l1_postings_cap=WIDE_P_CAP))[1]
+
     rec = {"name": rec.pop("name"), "route": rec.pop("route"),
            "source": rec.pop("source"), "replaces": rec.pop("replaces"),
            "launches": launches,
            "max_abs_err": max(err, rec.pop("max_abs_err")), **rec,
            "launches_by_path": by_path}
+    wide_rec = {"name": wide_rec.pop("name"), "route": wide_rec.pop("route"),
+                "source": wide_rec.pop("source"),
+                "replaces": wide_rec.pop("replaces"),
+                "launches": wide_by_path["wide-a"],
+                "max_abs_err": max(err, wide_rec.pop("max_abs_err")),
+                **wide_rec, "launches_by_path": wide_by_path}
     # the DP's top-level times are those of the bucket that took the most
     # pieces on the aligner's main path, at the aligner's batch there;
     # "buckets" has every bucket at B=512 and at that batch
@@ -1153,7 +1465,7 @@ def main():
               "bound_by": dp_recs[top]["bound_by"], "library_ms": None,
               "bucket": list(top), "buckets": list(dp_recs.values())}
     print(f"[done] {time.perf_counter() - t_start} s")
-    print(json.dumps({"kernels": [rec, dp_rec]}))
+    print(json.dumps({"kernels": [rec, dp_rec, wide_rec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

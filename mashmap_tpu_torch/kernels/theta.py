@@ -6,19 +6,24 @@ twin ``winnow.py::_theta_chunk``): for (C, S_B) int32 block rows,
 ``theta[c, j]`` is the s-th smallest DISTINCT rank of
 ``cur[c, j:] U nxt[c, :j]``, or RSENT when fewer than s are present.
 
-On a CUDA tensor it launches ``csrc/theta.cu`` (built with nvcc for
-sm_90a at first use, loaded with ctypes); on a CPU tensor it runs the
-plain version ``theta_chunk_ref``. There is no fallback between the two.
+On a CUDA tensor it launches ``csrc/theta.cu`` for s <= S_MAX = 512 (the
+sets in registers, 16 slots a lane) and ``csrc/theta_wide.cu`` above it
+(the sets in shared memory, or for s > WIDE_SMEM_S_MAX in the device
+scratch); both are built with nvcc for sm_90a at first use and loaded
+with ctypes. On a CPU tensor it runs the plain version
+``theta_chunk_ref``, at any s. The route follows from s and the device;
+nothing falls back from one to another.
 
-The CUDA side is two kernels (see the source's header). Kernel A walks
-each row once per direction and stores the suffix and prefix sets at
-every K-th offset plus an eviction log of the suffix walk; kernel B runs
-one independent chain per (row, K-offset segment), steps both sets
-forward from its checkpoints, merges them in full at the segment's first
-offset and otherwise moves theta by one place where a change lands at or
-below it (or, under fewer than s ranks, counts the union until it holds
-s). The rows' C * S_B / K chains keep the SMs busy, where one warp per
-row would leave each row's dependent chain to set the time.
+Each CUDA source is two kernels with one schedule (see theta.cu's
+header). Kernel A walks each row once per direction and stores the
+suffix and prefix sets at every K-th offset plus an eviction log of the
+suffix walk; kernel B runs one independent chain per (row, K-offset
+segment), steps both sets forward from its checkpoints, merges them in
+full at the segment's first offset and otherwise moves theta by one
+place where a change lands at or below it (or, under fewer than s ranks,
+counts the union until it holds s). The rows' C * S_B / K chains keep
+the SMs busy, where one warp per row would leave each row's dependent
+chain to set the time.
 """
 
 from __future__ import annotations
@@ -32,18 +37,28 @@ import torch
 from . import nvcc
 
 RSENT = int(np.iinfo(np.int32).max)  # "+inf" rank
-S_MAX = 512                           # 16 register slots per lane
+S_MAX = 512                           # theta.cu: 16 register slots a lane
+# theta_wide.cu keeps kernel B's two sets (2 x N ints, N = SP rounded up
+# to a power of two) in one block's shared memory while they fit its
+# 227 KB, N <= 16384; above this s they live in the device scratch
+WIDE_SMEM_S_MAX = 16384
 
-LAUNCHES = 0                          # kernel launches (not ref calls)
+LAUNCHES = 0                          # theta.cu launches (not ref calls)
+WIDE_LAUNCHES = 0                     # theta_wide.cu launches
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                    "theta.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_SRC = os.path.join(_CSRC, "theta.cu")
+_SRC_WIDE = os.path.join(_CSRC, "theta_wide.cu")
 _LIB = None
+_LIB_WIDE = None
 
 
-def ptxas_log_path() -> str:
-    """Where load_library keeps nvcc's -Xptxas -v report (registers,
-    spills and shared memory of each kernel instance) of this source."""
+def ptxas_log_path(wide: bool = False) -> str:
+    """Where load_library (load_wide_library) keeps nvcc's -Xptxas -v
+    report (registers, spills and shared memory of each kernel instance)
+    of theta.cu (theta_wide.cu)."""
+    if wide:
+        return nvcc.ptxas_log_path(_SRC_WIDE, "theta_wide")
     return nvcc.ptxas_log_path(_SRC, "theta")
 
 
@@ -67,6 +82,26 @@ def load_library():
     return lib
 
 
+def load_wide_library():
+    """Build csrc/theta_wide.cu with nvcc (once per source version) and
+    load it."""
+    global _LIB_WIDE
+    if _LIB_WIDE is not None:
+        return _LIB_WIDE
+    lib = ctypes.CDLL(nvcc.build(_SRC_WIDE, "theta_wide"))
+    lib.theta_wide_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.theta_wide_launch.restype = ctypes.c_int
+    lib.theta_wide_occupancy.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int)]
+    lib.theta_wide_occupancy.restype = ctypes.c_int
+    _LIB_WIDE = lib
+    return lib
+
+
 SEG_K = 128  # offsets per chain of kernel B (a multiple of 32)
 
 
@@ -76,18 +111,41 @@ def kernel_geometry(s: int, s_b: int):
     return 32 * (-(-s // 32)), SEG_K, -(-s_b // SEG_K)
 
 
+def wide_set_len(s: int) -> int:
+    """N, the length of one of theta_wide.cu's sets: SP rounded up to a
+    power of two (its binary searches' length)."""
+    return 1 << max(5, (kernel_geometry(s, 1)[0] - 1).bit_length())
+
+
+def wide_sets_in_scratch(s: int) -> bool:
+    """Whether theta_wide.cu keeps its sets in the device scratch (not in
+    shared memory) at sketch size s."""
+    return s > WIDE_SMEM_S_MAX
+
+
 def scratch_ints_per_row(s: int, s_b: int) -> int:
-    """Kernel scratch per row: S and P checkpoints, the eviction log."""
+    """Kernel scratch per row: S and P checkpoints, the eviction log, and
+    where theta_wide.cu keeps its sets in the scratch, kernel B's two sets
+    per chain (kernel A's two per row fit in their room)."""
     sp, _, n_seg = kernel_geometry(s, s_b)
-    return 2 * n_seg * sp + s_b
+    n = 2 * n_seg * sp + s_b
+    if wide_sets_in_scratch(s):
+        n += 2 * n_seg * wide_set_len(s)
+    return n
 
 
 def resident_warps(s: int):
     """(kernel A, kernel B) resident warps per SM at sketch size s, from
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card."""
-    lib = load_library()
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card,
+    for the source and route that s takes."""
     a, b = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.theta_occupancy(s, ctypes.byref(a), ctypes.byref(b))
+    if s <= S_MAX:
+        err = load_library().theta_occupancy(s, ctypes.byref(a),
+                                             ctypes.byref(b))
+    else:
+        err = load_wide_library().theta_wide_occupancy(
+            s, int(wide_sets_in_scratch(s)), ctypes.byref(a),
+            ctypes.byref(b))
     if err != 0:
         raise RuntimeError(f"theta_occupancy failed: CUDA error {err}")
     return a.value, b.value
@@ -116,31 +174,41 @@ def _check(cur: torch.Tensor, nxt: torch.Tensor, s: int, s_b: int):
     if cur.shape != nxt.shape or cur.device != nxt.device:
         raise ValueError("theta_chunk: cur and nxt differ in shape or "
                          "device")
-    if not 1 <= s <= S_MAX:
-        raise ValueError(f"theta_chunk: s={s} outside [1, {S_MAX}]")
+    if s < 1:
+        raise ValueError(f"theta_chunk: s={s} must be at least 1")
 
 
 def theta_chunk(cur: torch.Tensor, nxt: torch.Tensor, s: int,
                 s_b: int) -> torch.Tensor:
     """theta ranks (C, S_B) int32 for block rows cur/nxt (C, S_B) int32."""
-    global LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES
     _check(cur, nxt, s, s_b)
     if cur.device.type == "cpu":
         return theta_chunk_ref(cur, nxt, s, s_b)
     if cur.device.type != "cuda":
         raise ValueError(f"theta_chunk: unsupported device {cur.device}")
-    lib = load_library()
+    wide = s > S_MAX
+    lib = load_wide_library() if wide else load_library()
     C = cur.shape[0]
     out = torch.empty_like(cur)
     scratch = torch.empty(max(1, C * scratch_ints_per_row(s, s_b)),
                           dtype=torch.int32, device=cur.device)
-    err = lib.theta_chunk_launch(
-        cur.data_ptr(), nxt.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        C, s_b, s, SEG_K, torch.cuda.current_stream(cur.device).cuda_stream)
+    args = (cur.data_ptr(), nxt.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), C, s_b, s, SEG_K)
+    stream = torch.cuda.current_stream(cur.device).cuda_stream
+    if wide:
+        err = lib.theta_wide_launch(*args, int(wide_sets_in_scratch(s)),
+                                    stream)
+    else:
+        err = lib.theta_chunk_launch(*args, stream)
     if err != 0:
-        raise RuntimeError(f"theta_chunk kernel launch failed: CUDA "
-                           f"error {err}")
-    LAUNCHES += 1
+        raise RuntimeError(f"theta_chunk kernel launch failed "
+                           f"({'theta_wide.cu' if wide else 'theta.cu'}, "
+                           f"s={s}): CUDA error {err}")
+    if wide:
+        WIDE_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 

@@ -47,10 +47,30 @@ logger = logging.getLogger("mashmap_tpu_torch.map")
 # multiplies the calls by the shard count); its top is the slab halo.
 T_BUCKETS = (512, 1024, 2048, L2_T_MAX)
 T_BUCKETS_SHARDED = (512, 2048, L2_T_MAX)
+# bytes that one (W, s, 2T) int32 intermediate of l2_step (its
+# per-bucket active counts) may take: an L2 call's width W is cut to stay
+# under it. By default W * 2T = l2_batch * l2_entries_cap = 2^20, so each
+# such tensor is 4 MiB x s: no call is cut at s <= 1024, and above it a
+# call's peak (about seven such tensors) stays near 30 GB, not 106 GB at
+# s = 3780. Items are independent, so the width never changes a result.
+L2_BYTES = 4 << 30
 
 
 def _round_up(n: int, m: int) -> int:
     return n + (-n) % m
+
+
+def _l2_widths(area: int, T: int, s: int, n_dev: int = 1):
+    """(W_STEP, W_SMALL): L2 work items per call at bucket T, and the
+    quarter width a trailing partial chunk drops to. W_STEP * T stays
+    at area, cut so that one (W, s, 2T) int32 intermediate stays under
+    L2_BYTES (unless one item a device is already over it); both are
+    multiples of n_dev."""
+    w_step = _round_up(max(8, area // T), n_dev)
+    cut = L2_BYTES // (2 * T * s * 4)
+    if w_step > cut:
+        w_step = max(n_dev, cut - cut % n_dev)
+    return w_step, min(w_step, _round_up(max(8, w_step // 4), n_dev))
 
 
 def _batch_pad_rows(B: int, batch_fragments: int, n_dev: int = 1) -> int:
@@ -730,9 +750,9 @@ class Mapper:
         p = self.p
         pending = []
         for T, todo in buckets.items():
-            W_STEP = _round_up(max(8, AREA // T), self._n_dev)
             # a trailing partial chunk drops to a quarter-width call
-            W_SMALL = _round_up(max(8, W_STEP // 4), self._n_dev)
+            W_STEP, W_SMALL = _l2_widths(AREA, T, p.sketch_size,
+                                         self._n_dev)
             for w0 in range(0, len(todo), W_STEP):
                 chunk = todo[w0:w0 + W_STEP]
                 Wp = W_SMALL if len(chunk) <= W_SMALL else W_STEP
@@ -765,8 +785,7 @@ class Mapper:
         bnds = si.mi_bounds
         pending = []
         for T, todo in buckets.items():
-            W_STEP = max(8, AREA // T)
-            W_SMALL = max(8, W_STEP // 4)
+            W_STEP, W_SMALL = _l2_widths(AREA, T, p.sketch_size)
             by_owner = [[] for _ in range(n_sh)]
             for w in todo:
                 d = int(np.searchsorted(bnds, w[2], side="right")) - 1

@@ -114,8 +114,9 @@ class Parameters:
     threads: int = 1                          # host-side parallelism only
 
     # --- device-side knobs (no reference analog) ---
-    # multi-process and sharded-index runs (the JAX package's parallel/)
-    # parse but are not ported: api.map_files raises on them
+    # multi-process and sharded-index runs (parallel/, as the JAX
+    # package's): a gloo coordinator for --numProcesses > 1, and the index
+    # split across the devices with shard_index
     coordinator: Optional[str] = None
     num_processes: Optional[int] = None
     process_id: Optional[int] = None

@@ -14,6 +14,7 @@ tie-breaking thresholds, to maximize output parity.
 from __future__ import annotations
 
 import math
+import os
 from functools import lru_cache
 
 import numpy as np
@@ -147,8 +148,56 @@ def recommended_sketch_size(
     return s
 
 
+def cutoffs_cache_path(sketch_size: int, kmer_size: int, ANIDiff: float,
+                       ANIDiffConf: float,
+                       ss_table_max: float = 1000.0) -> str:
+    """Where sketch_cutoffs keeps the table of these arguments on disk:
+    under $XDG_CACHE_HOME (default ~/.cache)/mashmap_tpu_torch, named as
+    the JAX package names its copy."""
+    cache_dir = os.path.join(
+        os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")),
+        "mashmap_tpu_torch")
+    return os.path.join(
+        cache_dir, f"cutoffs_v1_{sketch_size}_{kmer_size}_{ANIDiff:.6g}_"
+                   f"{ANIDiffConf:.6g}_{ss_table_max:.6g}.npy")
+
+
 @lru_cache(maxsize=8)
 def sketch_cutoffs(
+    sketch_size: int,
+    kmer_size: int,
+    ANIDiff: float,
+    ANIDiffConf: float,
+    ss_table_max: float = 1000.0,
+) -> np.ndarray:
+    """Hypergeometric L1 cutoff table (``compute_cutoffs``), memoized.
+
+    The table depends only on its arguments and costs seconds to minutes
+    of SciPy time (about s^2.2; the reference pays the same via GSL on
+    every start, computeMap.hpp:178), so it is memoized for the process
+    and on disk (``cutoffs_cache_path``), as the JAX package keeps it. A
+    file that cannot be read is computed again; one that cannot be
+    written is skipped.
+    """
+    path = cutoffs_cache_path(sketch_size, kmer_size, ANIDiff, ANIDiffConf,
+                              ss_table_max)
+    try:
+        return np.load(path)
+    except (OSError, ValueError, EOFError):
+        pass
+    table = compute_cutoffs(sketch_size, kmer_size, ANIDiff, ANIDiffConf,
+                            ss_table_max)
+    tmp = f"{path}.{os.getpid()}.tmp.npy"
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.save(tmp, table)
+        os.replace(tmp, path)
+    except OSError:
+        pass
+    return table
+
+
+def compute_cutoffs(
     sketch_size: int,
     kmer_size: int,
     ANIDiff: float,
@@ -161,10 +210,6 @@ def sketch_cutoffs(
     when the best candidate's intersection size is ``cmax``.
     Reference: src/map/include/computeMap.hpp:178-258 (Map::setProbs).
     Returns an int array of length ``min(sketch_size, ss_table_max)+1``.
-
-    The table depends only on its arguments and costs seconds of SciPy
-    time (the reference pays the same via GSL on every start,
-    computeMap.hpp:178), so it is memoized for the process.
     """
     min_p = 1.0 - ANIDiffConf
     ss = int(min(float(sketch_size), ss_table_max))

@@ -117,3 +117,14 @@ def test_npz_written_by_jax_loads_in_port(tmp_path):
     b.save(str(tmp_path / "port_index"))
     assert_same_index(a, jb.ReferenceIndex.load(
         str(tmp_path / "port_index.npz")))
+
+
+def test_sketch_size_above_512():
+    """build_index at k=19, w=5000, s=600, above theta.cu's S_MAX (a
+    6 Mbp reference at --pi 78 gets s = 680): the plain version runs on
+    the CPU at any s."""
+    contigs = pangenome(2, 24_000, 0.05, seed=31)
+    a = jb.build_index(contigs, 19, 5000, 600)
+    b = tb.build_index(contigs, 19, 5000, 600, device="cpu")
+    assert_same_index(a, b)
+    assert len(b.mi_rank) > 0

@@ -66,7 +66,39 @@ def test_kernel_matches_plain_version(cuda, C, s_b, s, invalid_frac,
     assert torch.equal(got, tt.theta_chunk_ref(c, n, s, s_b))
 
 
-@pytest.mark.parametrize("s", [30, 130, 310])
+@pytest.mark.parametrize("C,s_b,s,invalid_frac,alphabet", [
+    (64, 4982, 513, 0.02, None),     # the first s of theta_wide.cu
+    (64, 4982, 680, 0.02, None),     # a 6 Mbp reference at --pi 78
+    (32, 4982, 1110, 0.5, None),     # a 3.1 Gbp reference at --pi 80
+    (16, 4982, 3780, 0.02, None),    # ... and at --pi 75
+    (16, 4982, 680, 0.02, 1400),     # alphabet near 2s: the sets share ranks
+    (64, 1000, 600, 0.02, None),     # S_B not a multiple of the segment
+    (8, 400, 600, 0.0, None),        # S_B < s: every theta RSENT
+    (2, 17000, 16400, 0.0, 1 << 30),  # the sets in the device scratch
+])
+def test_wide_kernel_matches_plain_version(cuda, C, s_b, s, invalid_frac,
+                                           alphabet):
+    """Above S_MAX the wrapper launches theta_wide.cu (and not theta.cu),
+    which equals the plain version exactly, on both of its set routes."""
+    rng = np.random.default_rng(C + s)
+    hi = alphabet or 4 * s_b
+    cur = rng.integers(0, hi, (C, s_b)).astype(np.int32)
+    nxt = rng.integers(0, hi, (C, s_b)).astype(np.int32)
+    cur[rng.random((C, s_b)) < invalid_frac] = tt.RSENT
+    nxt[rng.random((C, s_b)) < invalid_frac] = tt.RSENT
+    c = torch.from_numpy(cur).to(cuda)
+    n = torch.from_numpy(nxt).to(cuda)
+    before = (tt.LAUNCHES, tt.WIDE_LAUNCHES)
+    got = tt.theta_chunk(c, n, s, s_b)
+    torch.cuda.synchronize()
+    assert (tt.LAUNCHES, tt.WIDE_LAUNCHES) == (before[0], before[1] + 1)
+    want = tt.theta_chunk_ref(c, n, s, s_b)
+    assert torch.equal(got, want)
+    assert (want != tt.RSENT).any() == (s_b >= s)
+    assert tt.wide_sets_in_scratch(s) == (s > tt.WIDE_SMEM_S_MAX)
+
+
+@pytest.mark.parametrize("s", [30, 130, 310, 680, 3780])
 def test_kernel_on_contig_end_rows(cuda, s):
     """A contig's last block row has no next block (nxt all RSENT): its
     last windows hold fewer than s ranks and theta steps in and out of
@@ -88,6 +120,18 @@ def test_card_index_equals_cpu_index(cuda):
     a = builder.build_index(contigs, 11, 500, 24, device=cuda)
     assert tt.LAUNCHES > before
     b = builder.build_index(contigs, 11, 500, 24, device="cpu")
+    for f in builder._NPZ_FIELDS:
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                      err_msg=f)
+    assert a.freq_threshold == b.freq_threshold
+
+
+def test_card_index_equals_cpu_index_above_s_max(cuda):
+    contigs = pangenome(2, 60_000, 0.05, seed=6)
+    before = tt.WIDE_LAUNCHES
+    a = builder.build_index(contigs, 19, 5000, 680, device=cuda)
+    assert tt.WIDE_LAUNCHES > before
+    b = builder.build_index(contigs, 19, 5000, 680, device="cpu")
     for f in builder._NPZ_FIELDS:
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
                                       err_msg=f)

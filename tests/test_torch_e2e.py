@@ -152,3 +152,68 @@ def test_host_routes_paf_identical(tmp_path):
     assert st["host_l2"] > 0, st
     assert len(st["l2_buckets"]) >= 2, st
     assert st_low["host_frags"] > 0, st_low
+
+
+def test_sketch_size_above_512_paf_identical(tmp_path):
+    """A self-map at s = 520, above theta.cu's S_MAX (a 6 Mbp reference
+    at --pi 78 gets s = 680), with the cutoff table off on both sides
+    (it costs minutes at such s) and a postings cap that keeps every
+    fragment on the device route."""
+    recs = pangenome(3, 6_000, divergence=0.05, seed=7)
+    a, b = _both(tmp_path, recs, kmer_size=15, seg_length=800,
+                 sketch_size=520, percentage_identity=0.85,
+                 skip_prefix=True, prefix_delim="#",
+                 num_mappings_for_segment=1, stage1_topANI_filter=False,
+                 l2_batch=64, l2_entries_cap=256, l1_postings_cap=8192)
+    assert a.count("\n") >= 3
+    assert a == b
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 4])
+def test_l2_widths_cut_only_above_the_budget(n_dev):
+    """At the default area and s <= 1024 the L2 call widths are those
+    without a byte budget; at s = 3780 one (W, s, 2T) int32 intermediate
+    stays under it."""
+    from mashmap_tpu_torch.map import engine
+    area = Parameters().l2_batch * Parameters().l2_entries_cap // 2
+    for T in engine.T_BUCKETS:
+        old = engine._round_up(max(8, area // T), n_dev)
+        want = (old, engine._round_up(max(8, old // 4), n_dev))
+        for s in (130, 256, 680, 1024):
+            assert engine._l2_widths(area, T, s, n_dev) == want
+        w_step, w_small = engine._l2_widths(area, T, 3780, n_dev)
+        assert w_small <= w_step < old and w_step % n_dev == 0
+        assert w_step * 2 * T * 3780 * 4 <= engine.L2_BYTES
+
+
+def test_small_l2_budget_keeps_paf_and_path_stats(tmp_path, monkeypatch):
+    """Calls cut to a few items by a small L2 byte budget give the same
+    PAF and path_stats as the default widths."""
+    from mashmap_tpu_torch.kernels import mapdev
+    from mashmap_tpu_torch.map import engine
+    from mashmap_tpu_torch.io import for_each_seq_in_file
+    ref = str(tmp_path / "ref.fa")
+    write_fasta(ref, pangenome(4, 20_000, divergence=0.05, seed=7))
+    kw = dict(ref_sequences=[ref], out_file_name="-", skip_prefix=True,
+              prefix_delim="#", **SMALL)
+    idx = build_index(list(for_each_seq_in_file(ref)), kw["kmer_size"],
+                      kw["seg_length"], kw["sketch_size"], device="cpu")
+    widths = []
+    l2_step = mapdev.l2_step
+
+    def counted(w_lo, *a):
+        widths.append(w_lo.shape[0])
+        return l2_step(w_lo, *a)
+    monkeypatch.setattr(mapdev, "l2_step", counted)
+    runs = []
+    for budget in (engine.L2_BYTES, 3 * 2 * 512 * 30 * 4):
+        monkeypatch.setattr(engine, "L2_BYTES", budget)
+        widths.clear()
+        m = Mapper(Parameters(**kw).finalize(), idx, device="cpu")
+        out = io.StringIO()
+        m.run([ref], out)
+        runs.append((out.getvalue(), m.path_stats, list(widths)))
+    (paf, st, w_default), (paf_cut, st_cut, w_cut) = runs
+    assert paf.count("\n") > 3
+    assert paf_cut == paf and st_cut == st
+    assert max(w_cut) <= 3 < max(w_default) and len(w_cut) > len(w_default)

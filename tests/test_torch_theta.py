@@ -78,17 +78,72 @@ def test_rank_reduce_matches_jax():
                                   np.asarray(j_lut))
 
 
-def test_cpu_tensor_runs_plain_version_without_launch():
-    """On a CPU tensor the wrapper runs the plain version: the launch
-    count does not move (on a CUDA tensor it launches the kernel)."""
-    cur, nxt = _blocks(4, 4, 5, 37, 0.3)
-    before = tt.LAUNCHES
+@pytest.mark.parametrize("s", [5, 600])
+def test_cpu_tensor_runs_plain_version_without_launch(s):
+    """On a CPU tensor the wrapper runs the plain version at any s: no
+    launch count moves (on a CUDA tensor it launches theta.cu, or
+    theta_wide.cu above S_MAX)."""
+    cur, nxt = _blocks(4, 4, s, 37, 0.3)
+    before = (tt.LAUNCHES, tt.WIDE_LAUNCHES)
     got = tt.theta_chunk(torch.from_numpy(cur), torch.from_numpy(nxt),
-                         5, 37)
-    assert tt.LAUNCHES == before
+                         s, 37)
+    assert (tt.LAUNCHES, tt.WIDE_LAUNCHES) == before
     ref = tt.theta_chunk_ref(torch.from_numpy(cur), torch.from_numpy(nxt),
-                             5, 37)
+                             s, 37)
     assert torch.equal(got, ref)
+
+
+# sketch sizes above S_MAX (theta_wide.cu's on the card): 680 is the auto
+# s of a 6 Mbp reference at --pi 78, 1110 that of a 3.1 Gbp one at --pi 80
+@pytest.mark.parametrize("seed,s,s_b,invalid_frac", [
+    (30, 513, 700, 0.02),     # the first s above S_MAX
+    (31, 600, 1500, 0.5),     # heavy invalidity
+    (32, 1100, 1400, 0.0),
+    (33, 600, 400, 0.0),      # S_B < s: every window holds fewer than s
+])
+def test_theta_ref_matches_xla_above_s_max(seed, s, s_b, invalid_frac):
+    cur, nxt = _blocks(seed, 8, s, s_b, invalid_frac)
+    ours = tt.theta_chunk(torch.from_numpy(cur), torch.from_numpy(nxt),
+                          s, s_b).numpy()
+    xla = np.asarray(jw._theta_chunk(jnp.asarray(cur), jnp.asarray(nxt),
+                                     s, s_b))
+    np.testing.assert_array_equal(ours, xla)
+    if s_b < s:
+        assert (ours == RSENT).all()
+    else:
+        assert (ours != RSENT).any()
+
+
+def test_theta_ref_matches_pallas_above_s_max():
+    cur, nxt = _blocks(34, C_T, 513, 560, 0.05)
+    ours = tt.theta_chunk(torch.from_numpy(cur), torch.from_numpy(nxt),
+                          513, 560).numpy()
+    pallas = np.asarray(theta_chunk_pallas(
+        jnp.asarray(cur), jnp.asarray(nxt), 513, 560, interpret=True))
+    np.testing.assert_array_equal(ours, pallas)
+
+
+@pytest.mark.parametrize("s", [513, 600, 1100])
+def test_theta_scan_above_s_max_matches_bruteforce(s):
+    """Every window of a few contigs at s > S_MAX (a contig with RSENT
+    runs, one whose windows hold fewer than s distinct ranks, one with no
+    full window) against the brute-force definition."""
+    rng = np.random.default_rng(s)
+    span = s + 150
+    contigs = [rng.integers(0, 40 * s, n).astype(np.int32)
+               for n in (span, 2 * span + 37, 3 * span)]
+    contigs[1][rng.random(len(contigs[1])) < 0.1] = RSENT
+    contigs.append(rng.integers(0, s // 2, span + 90).astype(np.int32))
+    contigs.append(np.arange(span - 1, dtype=np.int32))
+    got = tw.theta_scan_ranks([torch.from_numpy(c) for c in contigs],
+                              s, span)
+    assert got[-1] is None
+    assert (got[-2].numpy() == RSENT).all()
+    for c, g in zip(contigs[:-1], got[:-1]):
+        bf = jw.window_thresholds_bruteforce(
+            c.astype(np.uint64), c != RSENT, s, span)
+        want = np.where(bf == jw.SENTINEL, RSENT, bf).astype(np.int32)
+        np.testing.assert_array_equal(g.numpy(), want)
 
 
 # --- CPU model of the CUDA kernel's schedule -------------------------------
@@ -149,10 +204,18 @@ def _model_step_theta(th, ucnt, suf, pre, x, s_low, v, p_low, s_chg, s):
     return th, ucnt
 
 
-def _model_theta_row(cur, nxt, s, K):
+def _model_merge_count(suf, pre, s):
+    """theta.cu's merge: theta and the distinct union's size."""
+    return _model_merge(suf, pre, s), len(set(suf) | set(pre))
+
+
+def _model_theta_row(cur, nxt, s, K, merge=None, step=None):
     """theta of one block row by the kernel's schedule; returns (theta,
     counts): full merges, incremental updates, offsets where a set
-    changed."""
+    changed. merge and step are the set operations (theta.cu's by
+    default; theta_wide.cu's below)."""
+    merge = merge or _model_merge_count
+    step = step or _model_step_theta
     s_b = len(cur)
     n_seg = -(-s_b // K)
     ev = np.full(s_b, -1, dtype=np.int64)
@@ -174,8 +237,7 @@ def _model_theta_row(cur, nxt, s, K):
         th, ucnt, stale = RSENT, 0, True
         for j in range(m * K, min(m * K + K, s_b)):
             if stale:
-                th, stale = _model_merge(suf, pre, s), False
-                ucnt = len(set(suf) | set(pre))
+                (th, ucnt), stale = merge(suf, pre, s), False
                 counts[0] += 1
             out[j] = th
             x, e = int(cur[j]), int(ev[j])
@@ -194,14 +256,15 @@ def _model_theta_row(cur, nxt, s, K):
             if th != RSENT and p_out == th:
                 stale = True
                 continue
-            th, ucnt = _model_step_theta(th, ucnt, suf, pre, x, s_low, v,
-                                         p_low, s_chg, s)
+            th, ucnt = step(th, ucnt, suf, pre, x, s_low, v, p_low, s_chg,
+                            s)
             counts[1] += 1
     return out, counts
 
 
-def _model_theta(cur, nxt, s, K):
-    rows = [_model_theta_row(c, n, s, K) for c, n in zip(cur, nxt)]
+def _model_theta(cur, nxt, s, K, merge=None, step=None):
+    rows = [_model_theta_row(c, n, s, K, merge, step)
+            for c, n in zip(cur, nxt)]
     return (np.stack([r[0] for r in rows]).astype(np.int32),
             sum(r[1] for r in rows))
 
@@ -305,6 +368,122 @@ def test_schedule_model_on_longer_rows(seed, s, alphabet):
         assert merges < 0.25 * changed
 
 
+# --- CPU model of theta_wide.cu's set operations --------------------------
+#
+# theta_wide.cu runs the schedule above with each set as a sorted array of
+# N = wide_set_len(s) ints, RSENT past its elements. Membership, positions
+# and theta's neighbours are a branch-free binary search (count_lt); the
+# merge walks one set's slots 32 at a time (a warp), ranks each live x in
+# the distinct union by g + 1 + #(other <= x) - (a ballot's running count
+# of x's set's elements that the other holds), and stops at the set's
+# first RSENT or once a rank reaches s, leaving the union's size
+# incomplete: the kernel reads it only while theta is RSENT, when no rank
+# reached s. The model below is those operations in plain Python.
+
+
+def _wide_array(st, s):
+    return np.array(list(st) + [RSENT] * (tt.wide_set_len(s) - len(st)),
+                    dtype=np.int64)
+
+
+def _wide_count_lt(Y, x):
+    """count_lt: #(Y < x) by the kernel's probes, and whether x is in Y."""
+    pos, step = 0, len(Y) >> 1
+    while step:
+        pos += step if Y[pos + step - 1] < x else 0
+        step >>= 1
+    pos += 1 if Y[pos] < x else 0
+    return pos, bool(pos < len(Y) and Y[pos] == x)
+
+
+def _wide_rank_side(X, Y, s):
+    best, n_live, n_dup = RSENT, 0, 0
+    for base in range(0, s, 32):
+        g = np.arange(base, base + 32)
+        x = np.where(g < s, X[g], RSENT)
+        live = x != RSENT
+        lt, in_y = np.zeros(32, np.int64), np.zeros(32, bool)
+        for i in np.nonzero(live)[0]:
+            lt[i], in_y[i] = _wide_count_lt(Y, x[i])
+        dup = live & in_y
+        f = g + 1 + lt + in_y - (n_dup + np.cumsum(dup))
+        if (live & (f == s)).any():
+            best = int(x[live & (f == s)][0])
+        n_dup += int(dup.sum())
+        n_live += int(live.sum())
+        if (live & (f >= s)).any() or not live.all():
+            break
+    return best, n_live, n_dup
+
+
+def _wide_merge(suf, pre, s):
+    a, b = _wide_array(suf, s), _wide_array(pre, s)
+    th_a, n_a, dup_a = _wide_rank_side(a, b, s)
+    th_b, n_b, _ = _wide_rank_side(b, a, s)
+    return min(th_a, th_b), n_a + n_b - dup_a
+
+
+def _wide_step_theta(th, ucnt, suf, pre, x, s_low, v, p_low, s_chg, s):
+    S, P = _wide_array(suf, s), _wide_array(pre, s)
+
+    def pred(Y, t):
+        i, _ = _wide_count_lt(Y, t)
+        return int(Y[i - 1]) if i > 0 else -1
+
+    def succ(Y, t):
+        i, f = _wide_count_lt(Y, t)
+        i += f
+        return int(Y[i]) if i < len(Y) else RSENT
+
+    rem = s_low and not _wide_count_lt(P, x)[1]
+    add = p_low and not _wide_count_lt(S, v)[1] and not (s_chg and v == x)
+    net = int(add) - int(rem)
+    if th == RSENT:
+        ucnt += net
+        return (RSENT if ucnt < s
+                else max(pred(S, RSENT), pred(P, RSENT))), ucnt
+    if net == 1 or (net == 0 and rem and x == th):
+        return max(pred(S, th), pred(P, th)), ucnt
+    if net == -1:
+        th = min(succ(S, th), succ(P, th))
+        return th, (s - 1 if th == RSENT else ucnt)
+    return th, ucnt
+
+
+@pytest.mark.parametrize("seed,s,s_b,K,invalid_frac,alphabet", [
+    (40, 40, 300, 32, 0.05, None),    # two warp chunks, the second partial
+    (41, 64, 256, 64, 0.0, 150),      # s a multiple of 32, shared ranks
+    (42, 33, 100, 32, 0.0, 20),       # fewer distinct ranks than s
+    (43, 70, 400, 128, 0.5, None),    # half RSENT
+    (44, 45, 200, 32, 0.8, 1000),     # sparse: theta in and out of RSENT
+    (45, 100, 130, 32, 0.02, 8),      # 8-letter alphabet
+])
+def test_wide_model_matches_ref(seed, s, s_b, K, invalid_frac, alphabet):
+    """theta_wide.cu's set operations, modelled on the CPU inside the
+    schedule, give the plain version's theta exactly, with the schedule's
+    merges and steps (as theta.cu's model counts them)."""
+    cur, nxt = _blocks(seed, 6, s, s_b, invalid_frac, alphabet)
+    got, counts = _model_theta(cur, nxt, s, K, _wide_merge, _wide_step_theta)
+    want, want_counts = _model_theta(cur, nxt, s, K)
+    ref = tt.theta_chunk_ref(torch.from_numpy(cur), torch.from_numpy(nxt),
+                             s, s_b).numpy()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(want, ref)
+    np.testing.assert_array_equal(counts, want_counts)
+
+
+def test_wide_model_at_the_first_wide_s():
+    """The wide model at s = 513 (17 warp chunks, N = 1024), on contig
+    end rows too (nxt all RSENT)."""
+    cur, nxt = _blocks(46, 2, 513, 700, 0.02)
+    nxt[1] = RSENT
+    got, _ = _model_theta(cur, nxt, 513, 128, _wide_merge, _wide_step_theta)
+    ref = tt.theta_chunk_ref(torch.from_numpy(cur), torch.from_numpy(nxt),
+                             513, 700).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert (ref[1] == RSENT).any() and (ref != RSENT).any()
+
+
 def test_wrapper_rejects_bad_inputs():
     cur, nxt = _blocks(0, 2, 4, 16, 0.0)
     c, n = torch.from_numpy(cur), torch.from_numpy(nxt)
@@ -313,7 +492,7 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         tt.theta_chunk(c, n, 4, 17)
     with pytest.raises(ValueError):
-        tt.theta_chunk(c, n, tt.S_MAX + 1, 16)
+        tt.theta_chunk(c, n, 0, 16)
     with pytest.raises(ValueError):
         tt.theta_chunk(c.t(), n.t(), 4, 2)
 
