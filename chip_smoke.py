@@ -71,7 +71,8 @@ Phases, in order; any failure propagates and exits non-zero:
 11. [wide-s]: sketch sizes above 512 through build_or_load_index and
    map_files on the card, the index the whole pangenome's: (a) the main
    path's flags at --pi 78 (auto s = 680, the cutoff filter on, its
-   table timed) with the postings cap lifted so the device map runs for
+   table timed; a child process computes it from phase 3 on, beside the
+   card's phases) with the postings cap lifted so the device map runs for
    every fragment; (a') a cut of the queries at the default cap (the
    host L1 route) and at the lifted one, the same PAF; (b) -J 3780
    --pi 75 --noHgFilter (the auto s of a 3.1 Gbp reference at --pi 75)
@@ -162,6 +163,8 @@ CHECK_EDGES = (
     (16, 4982, 3780, 0.02, None),   # ... and at --pi 75
     (8, 400, 600, 0.0, None),       # S_B < s: every theta RSENT
     (2, 17000, 16400, 0.0, 1 << 30),  # the sets in the device scratch
+    (64, 4982, 680, 0.02, 4),       # 4 letters: the scan's dedupe
+    (64, 4096, 680, 0.0, None),     # S_B a multiple of K: a full last one
 )
 
 # one H100 SXM: HBM rate (NVIDIA's data sheet), and the int32 compare
@@ -260,7 +263,7 @@ def theta_schedule_counts(cur, nxt, s, K, theta=None):
     """What theta over these block rows needs, counted on the host.
 
     Walks each row's suffix set (backward over cur) and prefix set
-    (forward over nxt) as kernel A does and returns a dict: ins_s and
+    (forward over nxt) one offset at a time and returns a dict: ins_s and
     ins_p, the effective inserts into each set; changed, the offsets
     where either set changed (the bound uses these three). Given the
     theta the rows produce, also what kernel B's rule predicts, as the
@@ -344,9 +347,12 @@ def theta_schedule_line(C, s_b, s, counts):
     from mashmap_tpu_torch.kernels import theta
     _, k, n_seg = theta.kernel_geometry(s, s_b)
     warps_a, warps_b = theta.resident_warps(s)
+    a, b = (("theta_wide_scan_kernel", "theta_wide_chain_kernel")
+            if s > theta.S_MAX else ("theta_ckpt_kernel",
+                                     "theta_chain_kernel"))
     n = counts["offsets"]
     print(f"[theta]   K={k} chains={C * n_seg} resident warps/SM: "
-          f"A {warps_a} B {warps_b}; changed share "
+          f"A ({a}) {warps_a} B ({b}) {warps_b}; changed share "
           f"{counts['changed'] / n}; host prediction of B: merged share "
           f"{counts['merged'] / n}, stepped share {counts['updated'] / n}")
 
@@ -406,10 +412,11 @@ def print_ptxas(log):
     name = None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '\w*?"
-                      r"(theta_\w+?_kernel|banded_dp_trace_kernel)IL[ib](\d+)E",
-                      line)
+                      r"(theta_\w+?_kernel|banded_dp_trace_kernel)"
+                      r"(?:IL[ib](\d+)E)?", line)
         if m:
-            name, spill = f"{m.group(1)}<{m.group(2)}>", "spills not read"
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            spill = "spills not read"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and name:
@@ -1219,12 +1226,13 @@ def coverage_gate(tag, paf, names):
         raise AssertionError(f"[wide-s] {tag} coverage gate failed: {bad}")
 
 
-def wide_phase(fa, device, names):
+def wide_phase(fa, device, names, table_job):
     """[wide-s]: sketch sizes above 512 on the card, through
     build_or_load_index and map_files, the index always the whole
     pangenome's. (a) --pi 78 (auto s = 680, cutoff filter on; its table
-    timed first) with l1_postings_cap lifted to WIDE_P_CAP, so that the
-    device map runs for every fragment; (a') a cut of the queries mapped
+    from table_job, the child of start_cutoff_table) with l1_postings_cap
+    lifted to WIDE_P_CAP, so that the device map runs for every
+    fragment; (a') a cut of the queries mapped
     against (a)'s index at the default cap (every fragment takes the host
     route) and at WIDE_P_CAP: the same PAF; (b) -J 3780 --pi 75
     --noHgFilter on a cut of the queries (its one fragment overflows the
@@ -1245,11 +1253,16 @@ def wide_phase(fa, device, names):
     # (a) the whole pangenome at s = 680
     p = params(fa, os.path.join(DATA, "smoke_wide_a.paf"), PI_WIDE,
                l1_postings_cap=WIDE_P_CAP)
+    job_out, _ = table_job.communicate()
+    if table_job.returncode != 0:
+        raise AssertionError(f"[wide-s] (a) the cutoff table's process "
+                             f"exited {table_job.returncode}")
     t0 = time.perf_counter()
     tbl = stats.sketch_cutoffs(p.sketch_size, p.kmer_size, p.ANIDiff,
                                p.ANIDiffConf, FIXED.ss_table_max)
     print(f"[wide-s] (a) cutoff table s={len(tbl) - 1} computed in "
-          f"{time.perf_counter() - t0} s")
+          f"{job_out.strip()} s by a child process, beside the card's "
+          f"phases; read back in {time.perf_counter() - t0} s")
     idx, paf, launches_a, m, _ = wide_map("(a)", p, device)
     coverage_gate("(a)", paf, names)
     if launches_a <= 0:
@@ -1326,6 +1339,29 @@ def l2_widths_line(tag, p, m):
     return cut
 
 
+def cutoff_table_job(fa, pi):
+    """Compute the cutoff table of `fa` at --pi `pi` into
+    $XDG_CACHE_HOME (the disk memo of stats.sketch_cutoffs) and print
+    the seconds it took."""
+    from mashmap_tpu_torch import stats
+    from mashmap_tpu_torch.params import FIXED
+    p = params(fa, os.devnull, pi)
+    t0 = time.perf_counter()
+    stats.sketch_cutoffs(p.sketch_size, p.kmer_size, p.ANIDiff,
+                         p.ANIDiffConf, FIXED.ss_table_max)
+    print(time.perf_counter() - t0)
+
+
+def start_cutoff_table(fa, pi):
+    """Start cutoff_table_job in a child process (host SciPy only, no
+    card), so that minutes of host time overlap the card's phases; the
+    caller reads its output and stops it."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke."
+         f"cutoff_table_job({fa!r}, {pi!r})"],
+        cwd=HERE, stdout=subprocess.PIPE, text=True)
+
+
 def build_all():
     """Build the theta kernels (both sources), the banded DP kernel and
     the native FASTA reader, all started together (each build is its own
@@ -1369,7 +1405,6 @@ def run():
         return 1
     sys.path.insert(0, HERE)
     sys.path.insert(0, os.path.join(HERE, "tests"))
-    from mashmap_tpu_torch.io import for_each_seq_in_file
     device = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -1386,10 +1421,23 @@ def run():
     # 2. build
     build_all()
 
-    # 3. theta against its plain version, then times on the main path's
-    # rows, at s = 130 (theta.cu) and at --pi 78, s = 680 (theta_wide.cu)
     fa_main = fasta(N_HAP, HAP_LEN, DIVERGENCE, SEED)
     fa_small = fasta(*SMALL)
+    table_job = start_cutoff_table(fa_main, PI_WIDE)
+    try:
+        return phases(device, fa_main, fa_small, table_job, t_start)
+    finally:
+        if table_job.poll() is None:
+            table_job.kill()
+        table_job.wait()
+
+
+def phases(device, fa_main, fa_small, table_job, t_start):
+    """Phases 3 to 11 and the last two lines."""
+    import torch
+    from mashmap_tpu_torch.io import for_each_seq_in_file
+    # 3. theta against its plain version, then times on the main path's
+    # rows, at s = 130 (theta.cu) and at --pi 78, s = 680 (theta_wide.cu)
     err = check_theta(device)
     rec = theta_record(fa_main, params(fa_main, os.devnull), device)
     wide_rec = theta_record(fa_main, params(fa_main, os.devnull, PI_WIDE),
@@ -1429,8 +1477,8 @@ def run():
 
     # 11. sketch sizes above 512: the pangenome at s = 680 and 3780, and
     # the small one at s = 680 on the card and the CPU
-    wide_by_path = {f"wide-{k}": v
-                    for k, v in wide_phase(fa_main, device, names).items()}
+    wide_by_path = {f"wide-{k}": v for k, v in wide_phase(
+        fa_main, device, names, table_job).items()}
     # (the card maps on its device route, the CPU on the host route)
     wide_by_path["small-pi78"] = card_vs_cpu(
         fa_small, device, PI_WIDE, "[small-pi78]",

@@ -8,42 +8,63 @@
 //   theta[c, j] = s-th smallest DISTINCT rank of cur[c, j:] U nxt[c, :j],
 //                 or RSENT (INT32_MAX) when fewer than s are present.
 //
-// The schedule is theta.cu's, unchanged (see its header):
-//   * kernel A (theta_wide_ckpt_kernel), one warp per (row, direction):
-//     walks cur backward and nxt forward once, stores the suffix and
-//     prefix sets at every K-th offset, and logs what each insert into
-//     the suffix set pushed out of slot s-1 (ev[j]; RSENT if the set was
-//     not full, -1 where the insert was a no-op);
+// Two kernels, with the checkpoints of theta.cu's schedule between them
+// (ck_s[m], the bottom-s distinct ranks of cur[mK:], and ck_p[m], those
+// of nxt[:mK], ck_p[0] empty; K = SEG_K = 128):
+//   * kernel A (theta_wide_scan_kernel), one block of K threads per (row,
+//     direction): a scan over the row's segments, backward over cur and
+//     forward over nxt. Each step merges one segment's K ranks into the
+//     previous checkpoint T at once: a thread keeps its rank if it is not
+//     RSENT, not held by a thread before it and not in T (a binary search
+//     of T), the kept ranks place themselves in a sorted list by counting,
+//     and every rank goes to its place in the union, T[i] to
+//     i + #(kept < T[i]), a kept u to #(T < u) + #(kept < u); only what
+//     lands below s is written. Bottom-s of a union is associative, so the
+//     checkpoints are exact. T is the checkpoint this block wrote one step
+//     before, read back after a __syncthreads (which makes the block's
+//     global writes visible to all its threads): kernel A holds no set in
+//     shared memory, only the segment.
 //   * kernel B (theta_wide_chain_kernel), one warp per (row, K-offset
-//     segment): steps the suffix set by removing cur[j] and appending
-//     ev[j], the prefix set by inserting nxt[j], visits only the offsets
-//     where a set may change, merges in full at the segment's first offset
-//     and where a prefix insert pushed theta itself out of the prefix set,
-//     and otherwise moves theta by one place in the union (step_theta).
+//     segment): a prologue walks its segment backward from ck_s[m+1]
+//     (RSENT for the row's last segment), inserting cur[j] into the suffix
+//     set one offset at a time, and keeps what each insert pushed out of
+//     slot s-1 (ev[j]; RSENT if the set was not full, -1 where the insert
+//     was a no-op) in registers, K/32 a lane; the walk ends at ck_s[m]
+//     (the JAX kernel's pass 2 rebuilds a segment's suffix sets from
+//     checkpoint m+1 the same way). Then it steps the suffix set by
+//     removing cur[j] and appending ev[j], the prefix set by inserting
+//     nxt[j], visits only the offsets where a set may change, merges in
+//     full at the segment's first offset and where a prefix insert pushed
+//     theta itself out of the prefix set, and otherwise moves theta by one
+//     place in the union (step_theta), as theta.cu does.
 //
-// Only where a set lives changes. A set is a sorted array of N ints (N is
-// SP = 32*ceil(s/32) rounded up to a power of two), RSENT past its
-// elements, slot g at address g: a warp touches slots k*32 + lane
-// together, one per bank. The array is its own sorted mirror, so the
-// position of a rank, membership, theta's predecessor and successor, and
-// the merge's counts are binary searches of log2(N) + 1 probes (the same
-// address on every lane, except in the merge). An insert or a removal
-// moves the slots above its position by one place, 32 at a time (read,
-// __syncwarp, write): top down for an insert, bottom up for a removal.
+// What this does about the serial chain: a kernel A that walks each row
+// once per direction (theta.cu's) makes one insert after another, each a
+// binary search and a shift of up to s/32 rounds; at s = 3780 that chain
+// of some 4300 inserts a row would set the time. Here no part walks a
+// whole row: kernel A is n_seg merges a row, each about s/K + log2 N
+// steps a thread, and the inserts move into kernel B's C * n_seg
+// independent chains of at most K inserts each.
 //
-// Each warp is a block of its own. Kernel A's set (N ints) and kernel B's
-// two (2N ints) live in dynamic shared memory while 2N ints fit one
-// block's 227 KB: N <= SMEM_SET_MAX = 16384, that is s <= 16384
+// A set of kernel B is a sorted array of N ints (N is SP = 32*ceil(s/32)
+// rounded up to a power of two), RSENT past its elements, slot g at
+// address g: a warp touches slots k*32 + lane together, one per bank. The
+// array is its own sorted mirror, so the position of a rank, membership,
+// theta's predecessor and successor, and the merge's counts are binary
+// searches of log2(N) + 1 probes (the same address on every lane, except
+// in the merge). An insert or a removal moves the slots above its
+// position by one place, 32 at a time (read, __syncwarp, write): top down
+// for an insert, bottom up for a removal. Kernel B's two sets (2N ints)
+// live in dynamic shared memory while they fit one block's 227 KB:
+// N <= SMEM_SET_MAX = 16384, that is s <= 16384
 // (kernels/theta.py::WIDE_SMEM_S_MAX, where the wrapper chooses). Above
 // that line the same code runs on per-warp arrays in the device scratch
 // (the GMEM instances), through L1 and L2.
 //
-// The bytes are theta.cu's (cur, nxt and theta once each, the eviction
-// log, 2*SP ints of checkpoint per chain). The work is the shifts (up to
-// s/32 shared-memory round trips a lane per insert or removal) and the
-// merges (at most 2*SP/32 binary searches a lane, stopped once a rank
-// reaches s). A simple kernel first: at s = 3780 a warp's two sets take
-// 32 KB, so 6 chains share an SM.
+// Bound: bytes. The function reads cur and nxt and writes theta once each
+// (0.0216 ms at 1208 rows of 4982, s = 680, on an H100's 3.35 TB/s; its
+// operations, ceil(log2 s) + 1 a set insert, take less). The kernels also
+// move 2*SP ints of checkpoint per chain.
 
 #include <cuda_runtime.h>
 
@@ -200,100 +221,94 @@ __device__ __forceinline__ int step_theta(int th, int& ucnt, const int* suf,
   return th;
 }
 
-// a set's first SP slots to and from the checkpoints, in slot order
-__device__ __forceinline__ void store_set(int* dst, const int* S, int SP,
-                                          int lane) {
-  for (int g = lane; g < SP; g += 32) dst[g] = S[g];
+// ---- kernel A: the checkpoints by a scan over segments --------------------
+
+constexpr int SEG_K = 128;           // offsets a segment, threads of kernel A
+constexpr int SEG_W = SEG_K / 32;    // chunks of 32 offsets a segment
+
+// count_lt on a checkpoint of SP slots read as N (a power of two >= SP)
+// with RSENT past SP: #(Y < x), and found gets whether x is in Y.
+__device__ __forceinline__ int count_lt_ck(const int* Y, int SP, int N,
+                                           int x, bool& found) {
+  int pos = 0;
+  for (int step = N >> 1; step > 0; step >>= 1) {
+    const int g = pos + step - 1;
+    pos += (g < SP ? Y[g] : RSENT) < x ? step : 0;
+  }
+  pos += (pos < SP ? Y[pos] : RSENT) < x ? 1 : 0;
+  found = pos < SP && Y[pos] == x;
+  return pos;
 }
 
-// ---- kernel A: checkpoints of S and P every K offsets, eviction log ------
-
-constexpr int GROUP = 4;  // chunks of 32 offsets loaded ahead of their use
-
-// theta.cu's walk_row with the set in memory: the suffix walk (SUFFIX)
-// goes backward over cur, takes a chunk's candidates (v < slot s-1) from
-// its highest lane down, logs ev and stores the set after the chunk; the
-// prefix walk goes forward over nxt, lowest lane first, and stores the
-// set before the chunk. ck gets the set at offset m*K in slot m.
-template <bool SUFFIX>
-__device__ __forceinline__ void walk_row(const int* __restrict__ src,
-                                         int* __restrict__ ck,
-                                         int* __restrict__ evrow, int* S,
-                                         int N, int SP, int s_b, int s,
-                                         int K, int lane) {
-  for (int g = lane; g < N; g += 32) S[g] = RSENT;
-  __syncwarp();
-  const int n_chunk = (s_b + 31) / 32;
-  const int n_grp = (n_chunk + GROUP - 1) / GROUP;
-  int last = RSENT;  // slot s-1 of the set
-  int buf[GROUP], nbuf[GROUP];
-  auto load = [&](int g, int (&b)[GROUP]) {
-#pragma unroll
-    for (int q = 0; q < GROUP; ++q) {
-      const int j = (g * GROUP + q) * 32 + lane;
-      b[q] = (g >= 0 && g < n_grp && j < s_b) ? __ldg(src + j) : RSENT;
+// Block w scans row w/2, the suffix checkpoints if w is even (segments
+// n_seg-1 down to 0 of cur, each merge written to ck_s[m]), else the
+// prefix ones (ck_p[0] empty, segment m of nxt merged into ck_p[m+1]).
+// Three barriers a merge: the segment loaded (and the previous merge
+// written), the kept ranks known, their sorted list complete.
+__global__ void __launch_bounds__(SEG_K)
+theta_wide_scan_kernel(const int* __restrict__ cur,
+                       const int* __restrict__ nxt, int* ck_s, int* ck_p,
+                       int C, int s_b, int s, int n_seg, int N) {
+  __shared__ int vals[SEG_K];  // the segment's ranks, one a thread
+  __shared__ int kv[SEG_K];    // the kept ones in place, RSENT elsewhere
+  __shared__ int ks[SEG_K];    // the kept ones sorted, RSENT past them
+  const int t = threadIdx.x;
+  const int w = blockIdx.x;
+  if (w >= 2 * C) return;  // block-uniform
+  const bool suffix = (w & 1) == 0;
+  const int SP = 32 * ((s + 31) / 32);
+  const int row = w >> 1;
+  const int* src = (suffix ? cur : nxt) + (size_t)row * s_b;
+  int* ck = (suffix ? ck_s : ck_p) + (size_t)row * n_seg * SP;
+  if (!suffix)
+    for (int g = t; g < SP; g += SEG_K) ck[g] = RSENT;
+  const int* T = ck;  // the previous checkpoint, size live ranks
+  int size = 0;
+  const int n_merge = suffix ? n_seg : n_seg - 1;
+  for (int i = 0; i < n_merge; ++i) {
+    const int m = suffix ? n_seg - 1 - i : i;
+    int* out = ck + (size_t)(suffix ? m : m + 1) * SP;
+    const int j = m * SEG_K + t;
+    const int v = j < s_b ? __ldg(src + j) : RSENT;
+    vals[t] = v;
+    __syncthreads();
+    bool keep = v != RSENT;
+    for (int u = 0; u < SEG_K; ++u) keep = keep && !(u < t && vals[u] == v);
+    int t_lt = 0;  // #(T < v)
+    if (keep && size > 0) {
+      bool in_t;
+      t_lt = count_lt_ck(T, SP, N, v, in_t);
+      keep = !in_t;
     }
-  };
-  load(SUFFIX ? n_grp - 1 : 0, buf);
-  for (int gi = 0; gi < n_grp; ++gi) {
-    const int g = SUFFIX ? n_grp - 1 - gi : gi;
-    load(SUFFIX ? g - 1 : g + 1, nbuf);
-#pragma unroll
-    for (int qi = 0; qi < GROUP; ++qi) {
-      const int q = SUFFIX ? GROUP - 1 - qi : qi;
-      const int ci = g * GROUP + q;
-      if (ci >= n_chunk) continue;  // warp-uniform
-      const int v = buf[q];
-      if (!SUFFIX && (ci * 32) % K == 0)
-        store_set(ck + (size_t)(ci * 32 / K) * SP, S, SP, lane);
-      int e = -1;
-      unsigned cand = __ballot_sync(FULL_MASK, v < last);
-      int lsrc = SUFFIX ? 31 - __clz(cand) : __ffs(cand) - 1;
-      int x = __shfl_sync(FULL_MASK, v, lsrc & 31);
-      while (cand) {
-        cand &= ~(1u << lsrc);
-        const int nsrc = SUFFIX ? 31 - __clz(cand) : __ffs(cand) - 1;
-        const int xn = __shfl_sync(FULL_MASK, v, nsrc & 31);
-        const int old = last;
-        if (x < last && set_insert(S, N, x, s, lane, last) && lane == lsrc)
-          e = old;
-        lsrc = nsrc;
-        x = xn;
-      }
-      if (SUFFIX) {
-        const int j = ci * 32 + lane;
-        if (j < s_b) evrow[j] = e;
-        if ((ci * 32) % K == 0)
-          store_set(ck + (size_t)(ci * 32 / K) * SP, S, SP, lane);
-      }
+    kv[t] = keep ? v : RSENT;
+    ks[t] = RSENT;
+    const int n_kept = __syncthreads_count(keep);
+    int rk = 0;  // #(kept < v)
+    for (int u = 0; u < SEG_K; ++u) rk += kv[u] < v ? 1 : 0;
+    if (keep) {
+      ks[rk] = v;
+      if (t_lt + rk < s) out[t_lt + rk] = v;
     }
-#pragma unroll
-    for (int q = 0; q < GROUP; ++q) buf[q] = nbuf[q];
+    __syncthreads();
+    for (int g = t; g < size; g += SEG_K) {
+      const int x = T[g];
+      bool f;
+      const int p = g + count_lt(ks, SEG_K, x, f);
+      if (p < s) out[p] = x;
+    }
+    const int new_size = min(s, size + n_kept);
+    for (int g = new_size + t; g < SP; g += SEG_K) out[g] = RSENT;
+    T = out;
+    size = new_size;
   }
 }
 
-// one warp a block: block w walks row w/2, the suffix set if w is even
-template <bool GMEM>
-__global__ void __launch_bounds__(32)
-theta_wide_ckpt_kernel(const int* __restrict__ cur,
-                       const int* __restrict__ nxt, int* __restrict__ ck_s,
-                       int* __restrict__ ck_p, int* __restrict__ ev,
-                       int* __restrict__ sets, int C, int s_b, int s, int K,
-                       int n_seg, int N) {
-  extern __shared__ int smem[];
-  const int lane = threadIdx.x;
-  const int w = blockIdx.x;
-  if (w >= 2 * C) return;
-  const int SP = 32 * ((s + 31) / 32);
-  int* S = GMEM ? sets + (size_t)w * N : smem;
-  const int row = w >> 1;
-  const size_t rb = (size_t)row * s_b;
-  const size_t cb = (size_t)row * n_seg * SP;
-  if ((w & 1) == 0)
-    walk_row<true>(cur + rb, ck_s + cb, ev + rb, S, N, SP, s_b, s, K, lane);
-  else
-    walk_row<false>(nxt + rb, ck_p + cb, nullptr, S, N, SP, s_b, s, K,
-                    lane);
+// a[q], a register array's entry at a q known only at run time
+__device__ __forceinline__ int pick(const int (&a)[SEG_W], int q) {
+  int r = a[0];
+#pragma unroll
+  for (int i = 1; i < SEG_W; ++i) r = q == i ? a[i] : r;
+  return r;
 }
 
 // ---- kernel B: one chain per (row, segment), one warp a block ------------
@@ -302,9 +317,8 @@ __global__ void __launch_bounds__(32)
 theta_wide_chain_kernel(const int* __restrict__ cur,
                         const int* __restrict__ nxt,
                         const int* __restrict__ ck_s,
-                        const int* __restrict__ ck_p,
-                        const int* __restrict__ ev, int* __restrict__ out,
-                        int* __restrict__ sets, int C, int s_b, int s, int K,
+                        const int* __restrict__ ck_p, int* __restrict__ out,
+                        int* __restrict__ sets, int C, int s_b, int s,
                         int n_seg, int N) {
   extern __shared__ int smem[];
   const int lane = threadIdx.x;
@@ -313,25 +327,56 @@ theta_wide_chain_kernel(const int* __restrict__ cur,
   const int SP = 32 * ((s + 31) / 32);
   int* suf = GMEM ? sets + (size_t)chain * 2 * N : smem;
   int* pre = suf + N;
-  const size_t cb = (size_t)chain * SP;
-  for (int g = lane; g < N; g += 32) {
-    suf[g] = g < SP ? __ldg(ck_s + cb + g) : RSENT;
-    pre[g] = g < SP ? __ldg(ck_p + cb + g) : RSENT;
-  }
-  __syncwarp();
   const int row = chain / n_seg;
   const int m = chain - row * n_seg;
   const size_t rb = (size_t)row * s_b;
+  const size_t cb = (size_t)chain * SP;
+  const bool tail = m + 1 == n_seg;  // the row's last segment: no ck_s[m+1]
+  for (int g = lane; g < N; g += 32) {
+    suf[g] = g < SP && !tail ? __ldg(ck_s + cb + SP + g) : RSENT;
+    pre[g] = g < SP ? __ldg(ck_p + cb + g) : RSENT;
+  }
+  __syncwarp();
+  const int j0 = m * SEG_K;
+  const int j1 = min(j0 + SEG_K, s_b);
+  // prologue: the segment's eviction log, walking it backward from
+  // S(j1) = ck_s[m+1] to S(j0) = ck_s[m]; a chunk's candidates
+  // (v < slot s-1) go in from its highest lane down, and lane l keeps
+  // ev[j0 + 32q + l] in ev[q]
+  int ev[SEG_W];
+  {
+    int last = suf[s - 1];
+#pragma unroll
+    for (int qi = 0; qi < SEG_W; ++qi) {
+      const int q = SEG_W - 1 - qi;
+      const int j = j0 + 32 * q + lane;
+      const int v = j < j1 ? __ldg(cur + rb + j) : RSENT;
+      int e = -1;
+      unsigned cand = __ballot_sync(FULL_MASK, v < last);
+      int lsrc = 31 - __clz(cand);
+      int x = __shfl_sync(FULL_MASK, v, lsrc & 31);
+      while (cand) {
+        cand &= ~(1u << lsrc);
+        const int nsrc = 31 - __clz(cand);
+        const int xn = __shfl_sync(FULL_MASK, v, nsrc & 31);
+        const int old = last;
+        if (x < last && set_insert(suf, N, x, s, lane, last) && lane == lsrc)
+          e = old;
+        lsrc = nsrc;
+        x = xn;
+      }
+      ev[q] = e;
+    }
+  }
   int plast = pre[s - 1];
   int th = RSENT, ucnt = 0;
   bool stale = true;
-  const int j1 = min(m * K + K, s_b);
-  for (int cb0 = m * K; cb0 < j1; cb0 += 32) {
+  for (int cb0 = j0; cb0 < j1; cb0 += 32) {
     const int j = cb0 + lane;
     const bool in = j < j1;
     const int cv = in ? __ldg(cur + rb + j) : RSENT;
     const int nv = in ? __ldg(nxt + rb + j) : RSENT;
-    const int evv = in ? __ldg(ev + rb + j) : -1;
+    const int evv = in ? pick(ev, (cb0 - j0) >> 5) : -1;
     // only the offsets where a set may change are visited (theta.cu)
     unsigned events =
         __ballot_sync(FULL_MASK, in && (evv != -1 || nv < plast));
@@ -375,46 +420,40 @@ theta_wide_chain_kernel(const int* __restrict__ cur,
 // ---- host side -----------------------------------------------------------
 
 template <bool GMEM>
-static size_t smem_bytes(int n_sets, int N) {
-  return GMEM ? 0 : sizeof(int) * (size_t)n_sets * N;
+static size_t smem_bytes(int N) {
+  return GMEM ? 0 : sizeof(int) * (size_t)2 * N;
 }
 
-// allow the blocks their dynamic shared memory (above 48 KB only on opt-in)
+// allow kernel B's blocks their dynamic shared memory (above 48 KB only
+// on opt-in); kernel A's is static
 template <bool GMEM>
 static cudaError_t set_smem(int N) {
   if (GMEM) return cudaSuccess;
-  if (smem_bytes<GMEM>(2, N) > SMEM_BLOCK_MAX) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      theta_wide_ckpt_kernel<GMEM>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes<GMEM>(1, N));
-  if (err != cudaSuccess) return err;
+  if (smem_bytes<GMEM>(N) > SMEM_BLOCK_MAX) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(theta_wide_chain_kernel<GMEM>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem_bytes<GMEM>(2, N));
+                              (int)smem_bytes<GMEM>(N));
 }
 
 template <bool GMEM>
 static cudaError_t launch(const int* cur, const int* nxt, int* out,
-                          int* scratch, int C, int s_b, int s, int K,
+                          int* scratch, int C, int s_b, int s,
                           cudaStream_t stream) {
-  const int n_seg = (s_b + K - 1) / K;
+  const int n_seg = (s_b + SEG_K - 1) / SEG_K;
   const int SP = 32 * ((s + 31) / 32);
   const int N = set_len(s);
   cudaError_t err = set_smem<GMEM>(N);
   if (err != cudaSuccess) return err;
   int* ck_s = scratch;
   int* ck_p = ck_s + (size_t)C * n_seg * SP;
-  int* ev = ck_p + (size_t)C * n_seg * SP;
-  int* sets = GMEM ? ev + (size_t)C * s_b : nullptr;
-  theta_wide_ckpt_kernel<GMEM><<<2 * C, 32, smem_bytes<GMEM>(1, N),
-                                 stream>>>(cur, nxt, ck_s, ck_p, ev, sets, C,
-                                           s_b, s, K, n_seg, N);
+  int* sets = GMEM ? ck_p + (size_t)C * n_seg * SP : nullptr;
+  theta_wide_scan_kernel<<<2 * C, SEG_K, 0, stream>>>(cur, nxt, ck_s, ck_p,
+                                                     C, s_b, s, n_seg, N);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  theta_wide_chain_kernel<GMEM><<<C * n_seg, 32, smem_bytes<GMEM>(2, N),
-                                  stream>>>(cur, nxt, ck_s, ck_p, ev, out,
-                                            sets, C, s_b, s, K, n_seg, N);
+  theta_wide_chain_kernel<GMEM><<<C * n_seg, 32, smem_bytes<GMEM>(N),
+                                  stream>>>(cur, nxt, ck_s, ck_p, out, sets,
+                                            C, s_b, s, n_seg, N);
   return cudaGetLastError();
 }
 
@@ -425,36 +464,36 @@ static cudaError_t occupancy(int s, int* warps_a, int* warps_b) {
   cudaError_t err = set_smem<GMEM>(N);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &na, theta_wide_ckpt_kernel<GMEM>, 32, smem_bytes<GMEM>(1, N));
+      &na, theta_wide_scan_kernel, SEG_K, 0);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &nb, theta_wide_chain_kernel<GMEM>, 32, smem_bytes<GMEM>(2, N));
-  *warps_a = na;
+      &nb, theta_wide_chain_kernel<GMEM>, 32, smem_bytes<GMEM>(N));
+  *warps_a = na * SEG_W;
   *warps_b = nb;
   return err;
 }
 
-// Launch both kernels on `stream`. scratch holds 2*C*n_seg*SP + C*s_b
-// ints (the S checkpoints, the P checkpoints, the eviction log), and with
-// gmem another 2*C*n_seg*N for the sets (kernel A uses the first 2*C*N).
-// gmem = 0 puts the sets in shared memory and needs s <= 16384. K is a
-// multiple of 32.
+// Launch both kernels on `stream`. scratch holds 2*C*n_seg*SP ints (the S
+// checkpoints, the P checkpoints), and with gmem another 2*C*n_seg*N for
+// kernel B's sets. gmem = 0 puts those sets in shared memory and needs
+// s <= 16384. K must be SEG_K (128).
 extern "C" int theta_wide_launch(const void* cur, const void* nxt, void* out,
                                  void* scratch, int C, int s_b, int s, int K,
                                  int gmem, void* stream) {
   if (C <= 0 || s_b <= 0) return 0;
-  if (K <= 0 || K % 32 != 0 || s < 1) return (int)cudaErrorInvalidValue;
+  if (K != SEG_K || s < 1) return (int)cudaErrorInvalidValue;
   auto* c = static_cast<const int*>(cur);
   auto* n = static_cast<const int*>(nxt);
   auto* o = static_cast<int*>(out);
   auto* sc = static_cast<int*>(scratch);
   auto st = static_cast<cudaStream_t>(stream);
-  return gmem ? (int)launch<true>(c, n, o, sc, C, s_b, s, K, st)
-              : (int)launch<false>(c, n, o, sc, C, s_b, s, K, st);
+  return gmem ? (int)launch<true>(c, n, o, sc, C, s_b, s, st)
+              : (int)launch<false>(c, n, o, sc, C, s_b, s, st);
 }
 
 // Resident warps per SM of each kernel at sketch size s on this route, as
-// the occupancy calculator gives them for this build.
+// the occupancy calculator gives them for this build (kernel A: resident
+// blocks times SEG_K / 32).
 extern "C" int theta_wide_occupancy(int s, int gmem, int* warps_a,
                                     int* warps_b) {
   return gmem ? (int)occupancy<true>(s, warps_a, warps_b)

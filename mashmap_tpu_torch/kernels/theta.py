@@ -8,22 +8,25 @@ twin ``winnow.py::_theta_chunk``): for (C, S_B) int32 block rows,
 
 On a CUDA tensor it launches ``csrc/theta.cu`` for s <= S_MAX = 512 (the
 sets in registers, 16 slots a lane) and ``csrc/theta_wide.cu`` above it
-(the sets in shared memory, or for s > WIDE_SMEM_S_MAX in the device
-scratch); both are built with nvcc for sm_90a at first use and loaded
+(kernel B's sets in shared memory, or for s > WIDE_SMEM_S_MAX in the
+device scratch); both are built with nvcc for sm_90a at first use and loaded
 with ctypes. On a CPU tensor it runs the plain version
 ``theta_chunk_ref``, at any s. The route follows from s and the device;
 nothing falls back from one to another.
 
-Each CUDA source is two kernels with one schedule (see theta.cu's
-header). Kernel A walks each row once per direction and stores the
-suffix and prefix sets at every K-th offset plus an eviction log of the
-suffix walk; kernel B runs one independent chain per (row, K-offset
-segment), steps both sets forward from its checkpoints, merges them in
-full at the segment's first offset and otherwise moves theta by one
-place where a change lands at or below it (or, under fewer than s ranks,
-counts the union until it holds s). The rows' C * S_B / K chains keep
-the SMs busy, where one warp per row would leave each row's dependent
-chain to set the time.
+Each CUDA source is two kernels with one schedule (see the headers).
+Kernel A stores each row's suffix and prefix sets at every K-th offset:
+theta.cu walks the row once per direction and also logs what each insert
+of the suffix walk pushed out; theta_wide.cu merges one segment of K
+ranks at a time into the previous checkpoint (a scan over segments, no
+walk). Kernel B runs one independent chain per (row, K-offset segment)
+(theta_wide.cu's first walks its segment backward from the next suffix
+checkpoint to make that segment's eviction log), steps both sets forward
+from its checkpoints, merges them in full at the segment's first offset
+and otherwise moves theta by one place where a change lands at or below
+it (or, under fewer than s ranks, counts the union until it holds s).
+The rows' C * S_B / K chains keep the SMs busy, where one warp per row
+would leave each row's dependent chain to set the time.
 """
 
 from __future__ import annotations
@@ -102,7 +105,7 @@ def load_wide_library():
     return lib
 
 
-SEG_K = 128  # offsets per chain of kernel B (a multiple of 32)
+SEG_K = 128  # offsets per chain of kernel B (theta_wide.cu takes only 128)
 
 
 def kernel_geometry(s: int, s_b: int):
@@ -124,12 +127,15 @@ def wide_sets_in_scratch(s: int) -> bool:
 
 
 def scratch_ints_per_row(s: int, s_b: int) -> int:
-    """Kernel scratch per row: S and P checkpoints, the eviction log, and
-    where theta_wide.cu keeps its sets in the scratch, kernel B's two sets
-    per chain (kernel A's two per row fit in their room)."""
+    """Kernel scratch per row: S and P checkpoints; for theta.cu the
+    eviction log, and where theta_wide.cu keeps its sets in the scratch,
+    kernel B's two sets per chain (theta_wide.cu's chains keep their
+    eviction logs in registers)."""
     sp, _, n_seg = kernel_geometry(s, s_b)
-    n = 2 * n_seg * sp + s_b
-    if wide_sets_in_scratch(s):
+    n = 2 * n_seg * sp
+    if s <= S_MAX:
+        n += s_b
+    elif wide_sets_in_scratch(s):
         n += 2 * n_seg * wide_set_len(s)
     return n
 
@@ -137,7 +143,8 @@ def scratch_ints_per_row(s: int, s_b: int) -> int:
 def resident_warps(s: int):
     """(kernel A, kernel B) resident warps per SM at sketch size s, from
     cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card,
-    for the source and route that s takes."""
+    for the source and route that s takes (theta_wide.cu's kernel A:
+    resident blocks of SEG_K threads, times SEG_K / 32)."""
     a, b = ctypes.c_int(0), ctypes.c_int(0)
     if s <= S_MAX:
         err = load_library().theta_occupancy(s, ctypes.byref(a),

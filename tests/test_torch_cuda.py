@@ -75,6 +75,8 @@ def test_kernel_matches_plain_version(cuda, C, s_b, s, invalid_frac,
     (64, 1000, 600, 0.02, None),     # S_B not a multiple of the segment
     (8, 400, 600, 0.0, None),        # S_B < s: every theta RSENT
     (2, 17000, 16400, 0.0, 1 << 30),  # the sets in the device scratch
+    (64, 4982, 680, 0.02, 4),        # 4 letters: the scan's dedupe
+    (64, 4096, 680, 0.0, None),      # S_B a multiple of the segment
 ])
 def test_wide_kernel_matches_plain_version(cuda, C, s_b, s, invalid_frac,
                                            alphabet):
@@ -94,7 +96,7 @@ def test_wide_kernel_matches_plain_version(cuda, C, s_b, s, invalid_frac,
     assert (tt.LAUNCHES, tt.WIDE_LAUNCHES) == (before[0], before[1] + 1)
     want = tt.theta_chunk_ref(c, n, s, s_b)
     assert torch.equal(got, want)
-    assert (want != tt.RSENT).any() == (s_b >= s)
+    assert (want != tt.RSENT).any() == (s_b >= s and hi >= s)
     assert tt.wide_sets_in_scratch(s) == (s > tt.WIDE_SMEM_S_MAX)
 
 

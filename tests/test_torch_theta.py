@@ -209,38 +209,58 @@ def _model_merge_count(suf, pre, s):
     return _model_merge(suf, pre, s), len(set(suf) | set(pre))
 
 
-def _model_theta_row(cur, nxt, s, K, merge=None, step=None):
-    """theta of one block row by the kernel's schedule; returns (theta,
-    counts): full merges, incremental updates, offsets where a set
-    changed. merge and step are the set operations (theta.cu's by
-    default; theta_wide.cu's below)."""
-    merge = merge or _model_merge_count
-    step = step or _model_step_theta
+def _model_serial_checkpoints(cur, nxt, s, K):
+    """theta.cu's kernel A: the serial walks of one row. Returns ck_s,
+    ck_p (the sets at every K-th offset) and the suffix walk's ev."""
     s_b = len(cur)
     n_seg = -(-s_b // K)
     ev = np.full(s_b, -1, dtype=np.int64)
     ck_s, ck_p = [None] * n_seg, [None] * n_seg
     st = []
-    for j in range(s_b - 1, -1, -1):            # kernel A, suffix
+    for j in range(s_b - 1, -1, -1):            # suffix
         ev[j] = _model_insert(st, int(cur[j]), s)
         if j % K == 0:
             ck_s[j // K] = list(st)
     st = []
-    for j in range(s_b):                        # kernel A, prefix
+    for j in range(s_b):                        # prefix
         if j % K == 0:
             ck_p[j // K] = list(st)
         _model_insert(st, int(nxt[j]), s)
+    return ck_s, ck_p, ev
+
+
+def _model_theta_row(cur, nxt, s, K, merge=None, step=None, scan=False):
+    """theta of one block row by the kernel's schedule; returns (theta,
+    counts): full merges, incremental updates, offsets where a set
+    changed. merge and step are the set operations (theta.cu's by
+    default; theta_wide.cu's below). scan takes the checkpoints from
+    theta_wide.cu's scan over segments and each chain's ev from its own
+    backward walk (_model_chain_prologue), in place of theta.cu's serial
+    walks."""
+    merge = merge or _model_merge_count
+    step = step or _model_step_theta
+    s_b = len(cur)
+    n_seg = -(-s_b // K)
+    if scan:
+        ck_s = _model_scan_checkpoints(cur, s, K, suffix=True)
+        ck_p = _model_scan_checkpoints(nxt, s, K, suffix=False)
+    else:
+        ck_s, ck_p, ev = _model_serial_checkpoints(cur, nxt, s, K)
     out = np.empty(s_b, dtype=np.int64)
     counts = np.zeros(3, dtype=np.int64)        # merges, updates, changed
     for m in range(n_seg):                      # kernel B, one chain each
-        suf, pre = list(ck_s[m]), list(ck_p[m])
+        if scan:
+            suf, ev_m = _model_chain_prologue(cur, ck_s, m, s, K)
+        else:
+            suf, ev_m = list(ck_s[m]), ev[m * K:m * K + K]
+        pre = list(ck_p[m])
         th, ucnt, stale = RSENT, 0, True
         for j in range(m * K, min(m * K + K, s_b)):
             if stale:
                 (th, ucnt), stale = merge(suf, pre, s), False
                 counts[0] += 1
             out[j] = th
-            x, e = int(cur[j]), int(ev[j])
+            x, e = int(cur[j]), int(ev_m[j - m * K])
             s_chg = e != -1
             if s_chg:                           # undo A's insert of x
                 suf.remove(x)
@@ -262,8 +282,8 @@ def _model_theta_row(cur, nxt, s, K, merge=None, step=None):
     return out, counts
 
 
-def _model_theta(cur, nxt, s, K, merge=None, step=None):
-    rows = [_model_theta_row(c, n, s, K, merge, step)
+def _model_theta(cur, nxt, s, K, merge=None, step=None, scan=False):
+    rows = [_model_theta_row(c, n, s, K, merge, step, scan)
             for c, n in zip(cur, nxt)]
     return (np.stack([r[0] for r in rows]).astype(np.int32),
             sum(r[1] for r in rows))
@@ -474,14 +494,189 @@ def test_wide_model_matches_ref(seed, s, s_b, K, invalid_frac, alphabet):
 
 def test_wide_model_at_the_first_wide_s():
     """The wide model at s = 513 (17 warp chunks, N = 1024), on contig
-    end rows too (nxt all RSENT)."""
+    end rows too (nxt all RSENT), with theta.cu's serial checkpoints and
+    with theta_wide.cu's scan and chain prologues."""
     cur, nxt = _blocks(46, 2, 513, 700, 0.02)
     nxt[1] = RSENT
-    got, _ = _model_theta(cur, nxt, 513, 128, _wide_merge, _wide_step_theta)
     ref = tt.theta_chunk_ref(torch.from_numpy(cur), torch.from_numpy(nxt),
                              513, 700).numpy()
-    np.testing.assert_array_equal(got, ref)
+    for scan in (False, True):
+        got, _ = _model_theta(cur, nxt, 513, 128, _wide_merge,
+                              _wide_step_theta, scan)
+        np.testing.assert_array_equal(got, ref)
+    _assert_scan_matches_serial(cur, nxt, 513, 128)
     assert (ref[1] == RSENT).any() and (ref != RSENT).any()
+
+
+# --- CPU model of theta_wide.cu's scan over segments -----------------------
+#
+# theta_wide.cu's kernel A builds the checkpoints without walking a row
+# offset by offset. One block of K threads per (row, direction) visits
+# the row's segments in order (backward over cur, forward over nxt) and
+# merges each into the running set T, the previous checkpoint: each
+# thread loads one rank of the segment (RSENT past S_B) and keeps it if
+# it is not RSENT, no thread before it holds it (K broadcast reads) and T
+# does not hold it (a binary search of T); each kept rank counts the kept
+# ones below it (K more reads) and takes that place in a sorted list of
+# them; then T[i] goes to i + #(kept < T[i]) (a binary search of that
+# list), a kept u to #(T < u) + #(kept < u), and only what lands below s
+# is written. Bottom-s of a union is associative, so each checkpoint is the
+# serial walk's. Kernel B then makes its own eviction log: from
+# ck_s[m+1] (empty for the row's last segment) it walks its segment
+# backward with the serial insert, which ends at ck_s[m]. The model below
+# is those steps in plain Python.
+
+
+def _model_scan_step(T, seg, s):
+    """Kernel A's merge of one segment's ranks (K of them, RSENT-padded)
+    into the sorted set T (at most s ranks): bottom-s of the distinct
+    union, placed by ranks as the block places it."""
+    v = np.asarray(seg, dtype=np.int64)
+    K = len(v)
+    Ta = _wide_array(T, s)
+    kept, t_lt = np.zeros(K, bool), np.zeros(K, np.int64)
+    for t in range(K):
+        if v[t] == RSENT or (v[:t] == v[t]).any():
+            continue                            # RSENT, or not the first
+        t_lt[t], found = _wide_count_lt(Ta, v[t])
+        kept[t] = not found
+    kv = np.where(kept, v, RSENT)               # the block's shared array
+    ks = np.sort(kv)                            # kept ranks, RSENT-padded
+    size = min(s, len(T) + int(kept.sum()))
+    new = np.full(size, -1, dtype=np.int64)
+    for t in np.nonzero(kept)[0]:
+        p = t_lt[t] + int((kv < v[t]).sum())
+        if p < s:
+            assert new[p] == -1
+            new[p] = v[t]
+    for i, x in enumerate(T):
+        p = i + _wide_count_lt(ks, x)[0]
+        if p < s:
+            assert new[p] == -1
+            new[p] = x
+    assert (new != -1).all()                    # every slot written once
+    return [int(x) for x in new]
+
+
+def _model_scan_checkpoints(vals, s, K, suffix):
+    """Kernel A's scan over one row's segments: ck[m] is the bottom-s
+    distinct ranks of vals[m*K:] (suffix) or of vals[:m*K] (prefix,
+    ck[0] empty), each the merge of a segment into the one before."""
+    s_b = len(vals)
+    n_seg = -(-s_b // K)
+    padded = np.full(n_seg * K, RSENT, dtype=np.int64)
+    padded[:s_b] = vals
+    ck, T = [None] * n_seg, []
+    for m in (range(n_seg - 1, -1, -1) if suffix else range(n_seg)):
+        if not suffix:
+            ck[m] = T
+        if suffix or m + 1 < n_seg:
+            T = _model_scan_step(T, padded[m * K:m * K + K], s)
+        if suffix:
+            ck[m] = T
+    return ck
+
+
+def _model_chain_prologue(cur, ck_s, m, s, K):
+    """Kernel B's prologue on chain m: from ck_s[m+1] (empty for the
+    row's last segment) the serial insert walks the segment backward.
+    Returns the set it ends at (S(m*K)) and the segment's ev."""
+    j0, j1 = m * K, min(m * K + K, len(cur))
+    st = list(ck_s[m + 1]) if m + 1 < len(ck_s) else []
+    ev = np.full(j1 - j0, -1, dtype=np.int64)
+    for j in range(j1 - 1, j0 - 1, -1):
+        ev[j - j0] = _model_insert(st, int(cur[j]), s)
+    return st, ev
+
+
+def _assert_scan_matches_serial(cur, nxt, s, K):
+    """Per row: the scan's checkpoints are the serial walks' at every m,
+    and each chain's prologue gives the serial ev and ends at ck_s[m]."""
+    for c, n in zip(cur, nxt):
+        ck_s, ck_p, ev = _model_serial_checkpoints(c, n, s, K)
+        scan_s = _model_scan_checkpoints(c, s, K, suffix=True)
+        assert scan_s == ck_s
+        assert _model_scan_checkpoints(n, s, K, suffix=False) == ck_p
+        for m in range(len(ck_s)):
+            st, ev_m = _model_chain_prologue(c, scan_s, m, s, K)
+            assert st == ck_s[m]
+            np.testing.assert_array_equal(ev_m, ev[m * K:m * K + K])
+
+
+# (seed, s, S_B, K, RSENT fraction, alphabet, blank segment)
+SCAN_EDGES = [
+    (50, 6, 100, 128, 0.1, None, None),    # S_B below K (the kernel's K)
+    (51, 9, 300, 128, 0.0, None, None),    # S_B not a multiple of K
+    (52, 5, 1, 32, 0.0, None, None),       # S_B = 1
+    (53, 7, 96, 32, 1.0, None, None),      # all-RSENT rows
+    (54, 12, 200, 32, 0.02, None, 1),      # an all-RSENT segment mid-row
+    (55, 3, 130, 32, 0.0, 4, None),        # 4 letters: segments of duplicates
+    (56, 20, 300, 32, 0.05, 40, None),     # alphabet near 2s: T holds the ranks
+    (57, 30, 20, 32, 0.0, None, None),     # s above S_B
+    (58, 40, 300, 32, 0.02, None, None),   # s above K
+    (59, 150, 400, 128, 0.02, None, 3),    # s above K = 128, a blank last one
+    (60, 64, 256, 64, 0.0, 150, None),     # S_B a multiple of K, s = K
+]
+
+
+def _scan_blocks(seed, C, s, s_b, K, invalid_frac, alphabet, blank):
+    cur, nxt = _blocks(seed, C, s, s_b, invalid_frac, alphabet)
+    if blank is not None:
+        cur[:, blank * K:blank * K + K] = RSENT
+        nxt[:, blank * K:blank * K + K] = RSENT
+    return cur, nxt
+
+
+@pytest.mark.parametrize("seed,s,s_b,K,invalid_frac,alphabet,blank",
+                         SCAN_EDGES)
+def test_scan_checkpoints_match_serial_walk(seed, s, s_b, K, invalid_frac,
+                                            alphabet, blank):
+    """theta_wide.cu's kernel A (a scan over segments) gives the serial
+    walk's suffix and prefix checkpoints at every m, and each chain's
+    backward walk from ck_s[m+1] gives the serial eviction log and ends
+    at ck_s[m]."""
+    cur, nxt = _scan_blocks(seed, 6, s, s_b, K, invalid_frac, alphabet,
+                            blank)
+    _assert_scan_matches_serial(cur, nxt, s, K)
+
+
+@pytest.mark.parametrize("seed,s,s_b,K,invalid_frac,alphabet,blank",
+                         SCAN_EDGES)
+def test_scan_model_matches_ref_and_pallas(seed, s, s_b, K, invalid_frac,
+                                           alphabet, blank):
+    """The whole wide model with the scan and the chain prologues (and
+    theta_wide.cu's set operations) equals the plain version and the
+    Pallas kernel (interpret mode) exactly, with the serial schedule's
+    merges and steps."""
+    cur, nxt = _scan_blocks(seed, C_T, s, s_b, K, invalid_frac, alphabet,
+                            blank)
+    got, counts = _model_theta(cur, nxt, s, K, _wide_merge,
+                               _wide_step_theta, scan=True)
+    _, want_counts = _model_theta(cur, nxt, s, K)
+    ref = tt.theta_chunk_ref(torch.from_numpy(cur), torch.from_numpy(nxt),
+                             s, s_b).numpy()
+    pallas = np.asarray(theta_chunk_pallas(
+        jnp.asarray(cur), jnp.asarray(nxt), s, s_b, interpret=True))
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(counts, want_counts)
+
+
+@pytest.mark.parametrize("s,s_b,extra", [
+    (130, 4982, 4982),                      # theta.cu: the eviction log
+    (680, 4982, 0),                         # theta_wide.cu: none
+    (16400, 17000, 2 * 133 * (1 << 15)),    # kernel B's sets in the scratch
+])
+def test_scratch_per_row_by_route(s, s_b, extra):
+    """The kernels' scratch per row: the two sets' checkpoints, plus
+    theta.cu's eviction log, or theta_wide.cu's sets where they live in
+    the scratch (its chains keep their eviction logs in registers); rows
+    per launch follow from it."""
+    sp, _, n_seg = tt.kernel_geometry(s, s_b)
+    n = tt.scratch_ints_per_row(s, s_b)
+    assert n == 2 * n_seg * sp + extra
+    assert tt.theta_rows_per_launch(torch.device("cuda"), s, s_b) == \
+        (1 << 30) // (4 * n)
 
 
 def test_wrapper_rejects_bad_inputs():
