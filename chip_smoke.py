@@ -20,9 +20,11 @@ Phases, in order; any failure propagates and exits non-zero:
    on the first 64 of those rows), and the same at --pi 78 (s = 680,
    the wide kernel); each [theta] line is followed by the
    segment length K, the chains, the resident warps per SM, the share
-   of offsets where a set changed, and the shares where kernel B's rule
-   merges in full and moves theta by one place (host predictions from
-   the rows and the kernel's output, not counts taken in the kernel);
+   of offsets where a set changed, and what kernel B's rule needs (host
+   counts from the rows and the kernel's output, not counts taken in
+   the kernel): for theta.cu the shares where it merges in full and
+   moves theta by one place, for theta_wide.cu the largest delta D' a
+   chain (mean, largest) and its inserts plus deletes a chain;
    the record carries the bound from the bytes and int32 operations
    these rows need;
 4. [dp-check]: banded_dp_trace (the DP, its end state and its traceback
@@ -165,6 +167,8 @@ CHECK_EDGES = (
     (2, 17000, 16400, 0.0, 1 << 30),  # the sets in the device scratch
     (64, 4982, 680, 0.02, 4),       # 4 letters: the scan's dedupe
     (64, 4096, 680, 0.0, None),     # S_B a multiple of K: a full last one
+    (16, 700, 600, 0.0, 1 << 30),   # the union just above s: short bases
+    (16, 4982, 3780, 0.02, 9000),   # alphabet near 2s: ranks in the base
 )
 
 # one H100 SXM: HBM rate (NVIDIA's data sheet), and the int32 compare
@@ -266,54 +270,129 @@ def theta_schedule_counts(cur, nxt, s, K, theta=None):
     (forward over nxt) one offset at a time and returns a dict: ins_s and
     ins_p, the effective inserts into each set; changed, the offsets
     where either set changed (the bound uses these three). Given the
-    theta the rows produce, also what kernel B's rule predicts, as the
-    kernel source and the CPU model in tests/test_torch_theta.py state
-    it: merged, the offsets merged in full (every segment's first, and
-    those after a prefix insert that pushed theta out of the prefix
-    set), and updated, the steps where a change at or below theta moves
-    it instead. These two are predictions, not counts the kernel made.
+    theta the rows produce at s <= 512, also what theta.cu's kernel B
+    rule predicts: merged, the offsets merged in full (every segment's
+    first, and those after a prefix insert that pushed theta out of the
+    prefix set), and updated, the steps where a change at or below theta
+    moves it instead. Above 512, what theta_wide.cu's kernel B rule
+    needs (delta_counts). These are host counts of the rules, as the
+    kernel sources and the CPU models in tests/test_torch_theta.py state
+    them, not counts the kernels made.
     """
     import numpy as np
-    from mashmap_tpu_torch.kernels.theta import RSENT
+    from mashmap_tpu_torch.kernels.theta import RSENT, S_MAX
     cur, nxt = np.asarray(cur), np.asarray(nxt)
     C, s_b = cur.shape
+    n_seg = -(-s_b // K)
     ar = np.arange(s)
+    wide = s > S_MAX
 
-    def walk(vals, order):
-        """Which offsets changed the set, and what each change pushed
-        out of slot s-1."""
+    def walk(vals, order, snap_after):
+        """Which offsets changed the set, what each change pushed out of
+        slot s-1, and (above S_MAX) the set at each segment start, after
+        (suffix) or before (prefix) its offset's insert."""
         st = np.full((C, s), RSENT, dtype=np.int32)
         chg = np.zeros((C, s_b), dtype=bool)
         pushed = np.zeros((C, s_b), dtype=np.int32)
+        snaps = {}
         for j in order:
+            if wide and j % K == 0 and not snap_after:
+                snaps[j // K] = st.copy()
             v = vals[:, j]
             rows = np.nonzero(v < st[:, -1])[0]
-            if rows.size == 0:
-                continue
-            sr, vr = st[rows], v[rows, None]
-            new = ~(sr == vr).any(axis=1)
-            rows, sr, vr = rows[new], sr[new], vr[new]
-            pos = (sr < vr).sum(axis=1, keepdims=True)
-            shifted = np.concatenate([sr[:, :1], sr[:, :-1]], axis=1)
-            st[rows] = np.where(ar < pos, sr,
-                                np.where(ar == pos, vr, shifted))
-            chg[rows, j] = True
-            pushed[rows, j] = sr[:, -1]
-        return chg, pushed
+            if rows.size:
+                sr, vr = st[rows], v[rows, None]
+                new = ~(sr == vr).any(axis=1)
+                rows, sr, vr = rows[new], sr[new], vr[new]
+                pos = (sr < vr).sum(axis=1, keepdims=True)
+                shifted = np.concatenate([sr[:, :1], sr[:, :-1]], axis=1)
+                st[rows] = np.where(ar < pos, sr,
+                                    np.where(ar == pos, vr, shifted))
+                chg[rows, j] = True
+                pushed[rows, j] = sr[:, -1]
+            if wide and j % K == 0 and snap_after:
+                snaps[j // K] = st.copy()
+        return chg, pushed, snaps
 
-    s_chg, _ = walk(cur, range(s_b - 1, -1, -1))
-    p_chg, p_out = walk(nxt, range(s_b))
+    s_chg, _, ck_s = walk(cur, range(s_b - 1, -1, -1), True)
+    p_chg, p_out, ck_p = walk(nxt, range(s_b), False)
     out = {"ins_s": int(s_chg.sum()), "ins_p": int(p_chg.sum()),
            "changed": int((s_chg | p_chg).sum()), "offsets": C * s_b}
-    if theta is not None:
+    if wide:
+        ck_s[n_seg] = np.full((C, s), RSENT, dtype=np.int32)
+        out.update(delta_counts(cur, nxt, s, K, ck_s, ck_p))
+    elif theta is not None:
         th = np.asarray(theta)
         low = (s_chg & (cur <= th)) | (p_chg & (nxt <= th))
         full = low & (th != RSENT) & p_chg & (p_out == th)
         out["updated"] = int((low & ~full).sum())
         full = full[:, :-1]
         full[:, K - 1::K] = False       # the next offset starts a segment
-        out["merged"] = int(full.sum()) + C * -(-s_b // K)
+        out["merged"] = int(full.sum()) + C * n_seg
     return out
+
+
+def delta_counts(cur, nxt, s, K, ck_s, ck_p):
+    """theta_wide.cu's kernel B rule on these rows, per chain (row,
+    segment m): the base B_m = bottom-s of ck_s[m+1] U ck_p[m] (the walks'
+    sets at the segment's ends), the segment's useful ranks (below
+    B_m[s-1], not in B_m), and D', the distinct useful ranks of
+    D(j) = cur[j:j1] U nxt[j0:j]. A useful rank v is in D(j) for j0 + k
+    with k below a (one past its last offset in cur's segment) or from b
+    (one past its first in nxt's) on; where b <= a it never leaves. So
+    it is deleted at a and inserted at b when a < b, inside the offsets
+    the chain steps. Returns delta_ins, delta_del, delta_top (each
+    chain's largest D', summed), delta_max (the largest) and chains."""
+    import numpy as np
+    from mashmap_tpu_torch.kernels.theta import RSENT
+    C, s_b = cur.shape
+    rows = np.arange(C, dtype=np.int64)[:, None]
+    got = {"delta_ins": 0, "delta_del": 0, "delta_top": 0, "delta_max": 0,
+           "chains": 0}
+    for m in range(len(ck_p)):
+        j0, j1 = m * K, min(m * K + K, s_b)
+        w = j1 - j0
+        u = np.sort(np.concatenate([ck_s[m + 1], ck_p[m]], axis=1), axis=1)
+        u[:, 1:][u[:, 1:] == u[:, :-1]] = RSENT
+        base = np.sort(u, axis=1)[:, :s]
+        flat = ((rows << 32) + base).ravel()
+
+        def useful(seg):
+            key = (rows << 32) + seg
+            i = np.minimum(np.searchsorted(flat, key), flat.size - 1)
+            return key, (seg < base[:, -1:]) & (flat[i] != key)
+
+        kc, uc = useful(cur[:, j0:j1])
+        kn, un = useful(nxt[:, j0:j1])
+        pos = np.broadcast_to(np.arange(w), (C, w))
+        kc, pc, kn, pn = kc[uc], pos[uc], kn[un], pos[un]
+        o = np.lexsort((pc, kc))
+        kc, pc = kc[o], pc[o]
+        last = np.ones(kc.size, dtype=bool)
+        last[:-1] = kc[1:] != kc[:-1]
+        o = np.lexsort((pn, kn))
+        kn, pn = kn[o], pn[o]
+        first = np.ones(kn.size, dtype=bool)
+        first[1:] = kn[1:] != kn[:-1]
+        keys = np.union1d(kc[last], kn[first])
+        a = np.zeros(keys.size, dtype=np.int64)
+        a[np.searchsorted(keys, kc[last])] = pc[last] + 1
+        b = np.full(keys.size, w, dtype=np.int64)
+        b[np.searchsorted(keys, kn[first])] = pn[first] + 1
+        stays = b <= a
+        got["delta_del"] += int((~stays & (a > 0) & (a < w)).sum())
+        got["delta_ins"] += int((~stays & (b < w)).sum())
+        row = keys >> 32
+        diff = np.zeros((C, w + 1), dtype=np.int64)
+        np.add.at(diff, (row, 0), 1)
+        np.add.at(diff, (row, np.where(stays, w, a)), -1)
+        np.add.at(diff, (row, np.where(stays, w, b)), 1)
+        np.add.at(diff, (row, np.full(row.size, w)), -1)
+        top = np.cumsum(diff, axis=1)[:, :w].max(axis=1)
+        got["delta_top"] += int(top.sum())
+        got["delta_max"] = max(got["delta_max"], int(top.max()))
+        got["chains"] += C
+    return got
 
 
 def theta_bound_ms(C, s_b, s, counts):
@@ -342,19 +421,28 @@ def theta_bound_ms(C, s_b, s, counts):
 
 def theta_schedule_line(C, s_b, s, counts):
     """The kernels' geometry at this shape, the share of offsets where a
-    set changed, and the shares where kernel B's rule merges in full and
-    moves theta by one place (host predictions)."""
+    set changed, and what kernel B's rule needs (host counts): for
+    theta.cu the shares where it merges in full and moves theta by one
+    place; for theta_wide.cu D''s largest length a chain (mean and
+    largest) and its inserts plus deletes a chain."""
     from mashmap_tpu_torch.kernels import theta
     _, k, n_seg = theta.kernel_geometry(s, s_b)
     warps_a, warps_b = theta.resident_warps(s)
-    a, b = (("theta_wide_scan_kernel", "theta_wide_chain_kernel")
-            if s > theta.S_MAX else ("theta_ckpt_kernel",
-                                     "theta_chain_kernel"))
+    wide = s > theta.S_MAX
+    a, b = (("theta_wide_scan_kernel", "theta_wide_chain_kernel") if wide
+            else ("theta_ckpt_kernel", "theta_chain_kernel"))
     n = counts["offsets"]
+    if wide:
+        ch = counts["chains"]
+        rule = (f"largest D' a chain mean {counts['delta_top'] / ch} max "
+                f"{counts['delta_max']}, inserts + deletes a chain "
+                f"{(counts['delta_ins'] + counts['delta_del']) / ch}")
+    else:
+        rule = (f"merged share {counts['merged'] / n}, stepped share "
+                f"{counts['updated'] / n}")
     print(f"[theta]   K={k} chains={C * n_seg} resident warps/SM: "
           f"A ({a}) {warps_a} B ({b}) {warps_b}; changed share "
-          f"{counts['changed'] / n}; host prediction of B: merged share "
-          f"{counts['merged'] / n}, stepped share {counts['updated'] / n}")
+          f"{counts['changed'] / n}; host count of B's rule: {rule}")
 
 
 def random_rows(C, s_b, s, frac, alphabet=None):

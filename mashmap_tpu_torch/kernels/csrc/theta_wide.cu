@@ -8,9 +8,9 @@
 //   theta[c, j] = s-th smallest DISTINCT rank of cur[c, j:] U nxt[c, :j],
 //                 or RSENT (INT32_MAX) when fewer than s are present.
 //
-// Two kernels, with the checkpoints of theta.cu's schedule between them
-// (ck_s[m], the bottom-s distinct ranks of cur[mK:], and ck_p[m], those
-// of nxt[:mK], ck_p[0] empty; K = SEG_K = 128):
+// Two kernels, with per-row checkpoints between them (ck_s[m], the
+// bottom-s distinct ranks of cur[mK:], and ck_p[m], those of nxt[:mK],
+// ck_p[0] empty; K = SEG_K = 128):
 //   * kernel A (theta_wide_scan_kernel), one block of K threads per (row,
 //     direction): a scan over the row's segments, backward over cur and
 //     forward over nxt. Each step merges one segment's K ranks into the
@@ -24,42 +24,44 @@
 //     before, read back after a __syncthreads (which makes the block's
 //     global writes visible to all its threads): kernel A holds no set in
 //     shared memory, only the segment.
-//   * kernel B (theta_wide_chain_kernel), one warp per (row, K-offset
-//     segment): a prologue walks its segment backward from ck_s[m+1]
-//     (RSENT for the row's last segment), inserting cur[j] into the suffix
-//     set one offset at a time, and keeps what each insert pushed out of
-//     slot s-1 (ev[j]; RSENT if the set was not full, -1 where the insert
-//     was a no-op) in registers, K/32 a lane; the walk ends at ck_s[m]
-//     (the JAX kernel's pass 2 rebuilds a segment's suffix sets from
-//     checkpoint m+1 the same way). Then it steps the suffix set by
-//     removing cur[j] and appending ev[j], the prefix set by inserting
-//     nxt[j], visits only the offsets where a set may change, merges in
-//     full at the segment's first offset and where a prefix insert pushed
-//     theta itself out of the prefix set, and otherwise moves theta by one
-//     place in the union (step_theta), as theta.cu does.
+//   * kernel B (theta_wide_chain_kernel), one warp per (row, segment m),
+//     offsets j0 = mK <= j < j1 = min(j0 + K, S_B). Bottom-s of a union is
+//     associative and the s-th distinct rank of X U Y is the s-th of
+//     X U bottom_s(Y), so
+//       theta(j) = s-th distinct rank of B_m U D(j),
+//       B_m  = bottom_s(ck_s[m+1] U ck_p[m])  (cur[j1:], nxt[:j0]; read-only)
+//       D(j) = cur[j:j1] U nxt[j0:j]          (a multiset of j1 - j0 ranks).
+//     The chain first builds B_m, its one set, by a warp merge of the two
+//     checkpoints, 32 slots of each a round (merge_base: places by
+//     searches of the other round's window over shuffles, a rank both hold
+//     written once), stopping once s ranks are placed; RSENT fills the
+//     slots from the union's size up. Only D(j)'s useful ranks can move theta:
+//     v < B_m[s-1] and v not in B_m (B_m[s-1] is RSENT while B_m is short,
+//     so the one test also drops RSENT). D' keeps them sorted and distinct
+//     in static shared memory, each with its count in D(j) and
+//     bless = #(B_m < v): entry i has place i + 1 + bless in the union, so
+//     theta is the entry of place s, or else B_m[s-1-t], t the entries of
+//     place below s. From j to j+1 one cur[j] leaves D(j) and nxt[j]
+//     enters: a count moves, or an entry is deleted or inserted (a binary
+//     search of 8 probes and a shift of at most 4 rounds of 32), and theta
+//     is recomputed only then. Offsets where neither rank is useful are
+//     skipped by a ballot over 32 offsets at a time.
 //
-// What this does about the serial chain: a kernel A that walks each row
-// once per direction (theta.cu's) makes one insert after another, each a
-// binary search and a shift of up to s/32 rounds; at s = 3780 that chain
-// of some 4300 inserts a row would set the time. Here no part walks a
-// whole row: kernel A is n_seg merges a row, each about s/K + log2 N
-// steps a thread, and the inserts move into kernel B's C * n_seg
-// independent chains of at most K inserts each.
+// What this does about the serial chain: no part walks a whole row and no
+// step shifts an s-wide array. Kernel A is n_seg merges a row, each about
+// s/K + log2 N steps a thread. Outside the one merge that builds B_m
+// (about s/32 rounds of two coalesced loads and two 6-step searches),
+// no operation of kernel B reads or writes more than K = 128 slots: D(j)
+// holds j1 - j0 ranks, so D' never exceeds 128 entries.
 //
-// A set of kernel B is a sorted array of N ints (N is SP = 32*ceil(s/32)
-// rounded up to a power of two), RSENT past its elements, slot g at
-// address g: a warp touches slots k*32 + lane together, one per bank. The
-// array is its own sorted mirror, so the position of a rank, membership,
-// theta's predecessor and successor, and the merge's counts are binary
-// searches of log2(N) + 1 probes (the same address on every lane, except
-// in the merge). An insert or a removal moves the slots above its
-// position by one place, 32 at a time (read, __syncwarp, write): top down
-// for an insert, bottom up for a removal. Kernel B's two sets (2N ints)
-// live in dynamic shared memory while they fit one block's 227 KB:
-// N <= SMEM_SET_MAX = 16384, that is s <= 16384
-// (kernels/theta.py::WIDE_SMEM_S_MAX, where the wrapper chooses). Above
-// that line the same code runs on per-warp arrays in the device scratch
-// (the GMEM instances), through L1 and L2.
+// B_m is a sorted array of N ints (N is SP = 32*ceil(s/32) rounded up to a
+// power of two), RSENT past its elements, slot g at address g, searched by
+// count_lt (log2(N) + 1 probes, none of them a branch). It lives in
+// dynamic shared memory while N <= SMEM_SET_MAX = 16384, that is
+// s <= 16384 (kernels/theta.py::WIDE_SMEM_S_MAX, where the wrapper
+// chooses); above that line the same code runs on per-chain arrays in the
+// device scratch (the GMEM instances), through L1 and L2. D' (3 x 128
+// ints) is static shared memory on both routes.
 //
 // Bound: bytes. The function reads cur and nxt and writes theta once each
 // (0.0216 ms at 1208 rows of 4982, s = 680, on an H100's 3.35 TB/s; its
@@ -71,7 +73,7 @@
 #define RSENT 0x7fffffff
 #define FULL_MASK 0xffffffffu
 
-constexpr int SMEM_SET_MAX = 16384;      // largest N with 2N ints in a block
+constexpr int SMEM_SET_MAX = 16384;      // largest N kernel B keeps in smem
 constexpr int SMEM_BLOCK_MAX = 232448;   // shared bytes a block may opt into
 
 // the set's array length: SP rounded up to a power of two
@@ -92,133 +94,6 @@ __device__ __forceinline__ int count_lt(const int* Y, int N, int x,
   pos += Y[pos] < x ? 1 : 0;
   found = pos < N && Y[pos] == x;
   return pos;
-}
-
-// largest element of Y below th, or -1
-__device__ __forceinline__ int pred(const int* Y, int N, int th) {
-  bool f;
-  const int i = count_lt(Y, N, th, f);
-  return i > 0 ? Y[i - 1] : -1;
-}
-
-// smallest element of Y above th, or RSENT
-__device__ __forceinline__ int succ(const int* Y, int N, int th) {
-  bool f;
-  const int i = count_lt(Y, N, th, f) + (f ? 1 : 0);
-  return i < N ? Y[i] : RSENT;
-}
-
-// Insert v (warp-uniform, v < last, the set's slot s-1) into the sorted
-// set S. Returns true if the set changed (v was not in it), and then sets
-// last to the new slot s-1. Slots pos..s-2 move up one place, the top 32
-// first; a chunk's reads and the next chunk's writes touch other slots.
-__device__ __forceinline__ bool set_insert(int* S, int N, int v, int s,
-                                           int lane, int& last) {
-  bool dup;
-  const int pos = count_lt(S, N, v, dup);
-  if (dup) return false;  // warp-uniform
-  for (int top = s - 2; top >= pos; top -= 32) {
-    const int g = top - lane;
-    const int y = g >= pos ? S[g] : RSENT;
-    __syncwarp();
-    if (g >= pos) S[g + 1] = y;
-  }
-  __syncwarp();  // every lane's search and reads are done
-  if (lane == 0) S[pos] = v;
-  __syncwarp();
-  last = S[s - 1];
-  return true;
-}
-
-// Remove x (warp-uniform, present in the set) and put e in slot s-1: the
-// inverse of an insert of x that pushed e out of slot s-1. Slots
-// pos+1..s-1 move down one place, the lowest 32 first.
-__device__ __forceinline__ void set_remove_append(int* S, int N, int x,
-                                                  int e, int s, int lane) {
-  bool found;
-  const int pos = count_lt(S, N, x, found);
-  for (int lo = pos; lo < s - 1; lo += 32) {
-    const int g = lo + lane;
-    const int y = g < s - 1 ? S[g + 1] : RSENT;
-    __syncwarp();
-    if (g < s - 1) S[g] = y;
-  }
-  __syncwarp();
-  if (lane == 0) S[s - 1] = e;
-  __syncwarp();
-}
-
-// Candidates of set X for the s-th distinct of X U Y, X's slots 32 at a
-// time: x in slot g has rank g + 1 + #(Y <= x) - #(X's elements up to x
-// that Y holds) in the distinct union (a ballot's running count gives the
-// last). Returns the x of rank exactly s on this lane (RSENT if none).
-// Stops at X's first RSENT, or once a rank reaches s (the union then holds
-// s ranks and theta is known); n_live and n_dup get X's elements and
-// those that Y holds, complete when it did not stop at a rank.
-__device__ __forceinline__ int rank_side(const int* X, const int* Y, int N,
-                                         int s, int lane, int& n_live,
-                                         int& n_dup) {
-  int best = RSENT, live_c = 0, dup_c = 0;
-  const unsigned upto = FULL_MASK >> (31 - lane);  // lanes <= this one
-  for (int base = 0; base < s; base += 32) {
-    const int g = base + lane;
-    const int x = g < s ? X[g] : RSENT;
-    const bool live = x != RSENT;
-    bool in_y = false;
-    const int lt = live ? count_lt(Y, N, x, in_y) : 0;
-    const unsigned dm = __ballot_sync(FULL_MASK, live && in_y);
-    const unsigned lm = __ballot_sync(FULL_MASK, live);
-    const int f = g + 1 + lt + (in_y ? 1 : 0) - (dup_c + __popc(dm & upto));
-    if (live && f == s) best = x;
-    dup_c += __popc(dm);
-    live_c += __popc(lm);
-    if (__any_sync(FULL_MASK, live && f >= s) || lm != FULL_MASK) break;
-  }
-  n_live = live_c;
-  n_dup = dup_c;
-  return best;
-}
-
-// theta of a U b, and in ucnt the size of the distinct union (which
-// step_theta reads while theta is RSENT; exact then, as neither side
-// stopped at a rank)
-__device__ __forceinline__ int merge_theta(const int* a, const int* b,
-                                           int N, int s, int lane,
-                                           int& ucnt) {
-  int na, da, nb, db;
-  const int th = min(rank_side(a, b, N, s, lane, na, da),
-                     rank_side(b, a, N, s, lane, nb, db));
-  ucnt = na + nb - da;
-  return __reduce_min_sync(FULL_MASK, th);
-}
-
-// theta.cu's step_theta on sets in memory: the union lost x unless pre
-// holds it and gained v unless suf held it, and theta moves to its
-// predecessor or successor in the union, or stays; under an RSENT theta
-// ucnt tells when the union reaches s ranks, and theta is its largest.
-__device__ __forceinline__ int step_theta(int th, int& ucnt, const int* suf,
-                                          const int* pre, int N, int x,
-                                          bool s_low, int v, bool p_low,
-                                          bool s_chg, int s) {
-  bool x_in_p, v_in_s;
-  count_lt(pre, N, x, x_in_p);
-  count_lt(suf, N, v, v_in_s);
-  const bool rem = s_low && !x_in_p;
-  const bool add = p_low && !v_in_s && !(s_chg && v == x);
-  const int net = (int)add - (int)rem;
-  if (th == RSENT) {
-    ucnt += net;
-    if (ucnt < s) return RSENT;
-    return max(pred(suf, N, RSENT), pred(pre, N, RSENT));
-  }
-  if (net == 1 || (net == 0 && rem && x == th))
-    return max(pred(suf, N, th), pred(pre, N, th));
-  if (net == -1) {
-    const int best = min(succ(suf, N, th), succ(pre, N, th));
-    if (best == RSENT) ucnt = s - 1;  // the union fell below s ranks
-    return best;
-  }
-  return th;
 }
 
 // ---- kernel A: the checkpoints by a scan over segments --------------------
@@ -303,15 +178,147 @@ theta_wide_scan_kernel(const int* __restrict__ cur,
   }
 }
 
-// a[q], a register array's entry at a q known only at run time
-__device__ __forceinline__ int pick(const int (&a)[SEG_W], int q) {
-  int r = a[0];
-#pragma unroll
-  for (int i = 1; i < SEG_W; ++i) r = q == i ? a[i] : r;
-  return r;
+// ---- kernel B: one chain per (row, segment), one warp a block ------------
+
+// #(w < x) over the 32 sorted values w of a warp's lanes, by shuffles.
+__device__ __forceinline__ int count_lt_warp(int w, int x) {
+  int pos = 0;
+  for (int step = 16; step > 0; step >>= 1)
+    pos += __shfl_sync(FULL_MASK, w, pos + step - 1) < x ? step : 0;
+  return pos + (__shfl_sync(FULL_MASK, w, pos) < x ? 1 : 0);
 }
 
-// ---- kernel B: one chain per (row, segment), one warp a block ------------
+// The base: bottom-s of A U P, two sorted checkpoints in device memory
+// (sp_a and SP slots, RSENT past their ranks; sp_a = 0 for no A), into S.
+// A warp merge: each round loads the next 32 slots of each, and the
+// smallest 32 of those 64 are the merge's next 32 (A's copy first where
+// both hold a rank). A rank of A in lane l goes to l + #(P's window < a),
+// one of P to l + #(A's window <= p) (searches of the other window by
+// shuffles); a P rank is dropped where A's window or the last A rank
+// merged holds it, and the rest go to their places in the distinct union,
+// those below s written. Stops once s ranks are placed or both run out.
+// Returns the base's size, min(s, |A U P|).
+__device__ __forceinline__ int merge_base(const int* A, const int* P,
+                                          int sp_a, int SP, int* S, int s,
+                                          int lane) {
+  const unsigned below = (1u << lane) - 1u;  // the lanes before this one
+  int ia = 0, ip = 0, size = 0, last_a = RSENT;
+  while (size < s) {
+    const int a = ia + lane < sp_a ? __ldg(A + ia + lane) : RSENT;
+    const int p = ip + lane < SP ? __ldg(P + ip + lane) : RSENT;
+    if (!__any_sync(FULL_MASK, a != RSENT || p != RSENT)) break;
+    const int ra = count_lt_warp(p, a);  // P's window below a
+    const int c = count_lt_warp(a, p);   // A's window below p
+    const int a_c = __shfl_sync(FULL_MASK, a, c & 31);  // on every lane
+    const bool in_a = c < 32 && a_c == p;
+    const int rp = c + (in_a ? 1 : 0);
+    const bool dup = p != RSENT && (in_a || p == last_a);
+    const int qa = lane + ra, qp = lane + rp;  // places in this round
+    const unsigned dm = __ballot_sync(FULL_MASK, dup);
+    const unsigned p_lt_a = ra == 32 ? FULL_MASK : (1u << ra) - 1u;
+    const int da = size + qa - __popc(dm & p_lt_a);
+    const int dp = size + qp - __popc(dm & below);
+    const bool ta = qa < 32 && a != RSENT, tp = qp < 32 && p != RSENT && !dup;
+    if (ta && da < s) S[da] = a;
+    if (tp && dp < s) S[dp] = p;
+    const int n_a = __popc(__ballot_sync(FULL_MASK, qa < 32));
+    size += __popc(__ballot_sync(FULL_MASK, ta)) +
+            __popc(__ballot_sync(FULL_MASK, tp));
+    if (n_a > 0) last_a = __shfl_sync(FULL_MASK, a, n_a - 1);
+    ia += n_a;
+    ip += 32 - n_a;
+  }
+  return min(size, s);
+}
+
+// theta from the base and D' (dv ranks, dbl bless, L entries): D''s
+// entry i has place i + 1 + dbl[i] in the union; theta is the entry of
+// place s, or else S[s-1-t], t the entries of place below s (RSENT when
+// the union holds fewer than s ranks). Places rise with i, so it stops
+// at the first chunk that reaches s.
+__device__ __forceinline__ int delta_theta(const int* dv, const int* dbl,
+                                           int L, const int* S, int s,
+                                           int lane) {
+  int t = 0, hit = RSENT;
+  for (int base = 0; base < L; base += 32) {
+    const int i = base + lane;
+    const int r = i < L ? i + 1 + dbl[i] : s + 1;
+    if (r == s) hit = dv[i];
+    t += __popc(__ballot_sync(FULL_MASK, r < s));
+    if (__any_sync(FULL_MASK, r >= s)) break;
+  }
+  hit = __reduce_min_sync(FULL_MASK, hit);
+  return hit != RSENT ? hit : S[s - 1 - t];
+}
+
+// One copy of x (an entry of D') leaves D(j): its count falls, and at 0
+// its entry goes, the entries above it moving down one place, 32 at a
+// time, lowest first. RSENT enters the last slot as part of the move: a
+// store of it by one lane after the move lost the last entry on the
+// card. Returns whether the entry went.
+__device__ __forceinline__ bool delta_remove(int* dv, int* dc, int* dbl,
+                                             int& L, int x, int lane) {
+  bool f;
+  const int pos = count_lt(dv, SEG_K, x, f);
+  int c = 0;
+  if (lane == 0) {
+    c = dc[pos] - 1;
+    if (c > 0) dc[pos] = c;
+  }
+  c = __shfl_sync(FULL_MASK, c, 0);
+  if (c == 0) {
+    for (int lo = pos; lo < L; lo += 32) {
+      const int g = lo + lane;
+      const bool mv = g < L;
+      const bool in = g + 1 < L;
+      const int a = in ? dv[g + 1] : RSENT, b = in ? dc[g + 1] : 0,
+                e = in ? dbl[g + 1] : 0;
+      __syncwarp();
+      if (mv) {
+        dv[g] = a;
+        dc[g] = b;
+        dbl[g] = e;
+      }
+    }
+    --L;
+  }
+  __syncwarp();
+  return c == 0;
+}
+
+// One copy of v (useful, bless vb) enters D(j): its count rises, or it is
+// inserted with count 1, the entries from its place up moving up one
+// place, 32 at a time, top first. Returns whether an entry came.
+__device__ __forceinline__ bool delta_add(int* dv, int* dc, int* dbl,
+                                          int& L, int v, int vb, int lane) {
+  bool f;
+  const int pos = count_lt(dv, SEG_K, v, f);
+  if (f) {
+    if (lane == 0) ++dc[pos];
+  } else {
+    for (int top = L - 1; top >= pos; top -= 32) {
+      const int g = top - lane;
+      const bool mv = g >= pos;
+      const int a = mv ? dv[g] : 0, b = mv ? dc[g] : 0, e = mv ? dbl[g] : 0;
+      __syncwarp();
+      if (mv) {
+        dv[g + 1] = a;
+        dc[g + 1] = b;
+        dbl[g + 1] = e;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) {
+      dv[pos] = v;
+      dc[pos] = 1;
+      dbl[pos] = vb;
+    }
+    ++L;
+  }
+  __syncwarp();
+  return !f;
+}
+
 template <bool GMEM>
 __global__ void __launch_bounds__(32)
 theta_wide_chain_kernel(const int* __restrict__ cur,
@@ -321,99 +328,114 @@ theta_wide_chain_kernel(const int* __restrict__ cur,
                         int* __restrict__ sets, int C, int s_b, int s,
                         int n_seg, int N) {
   extern __shared__ int smem[];
+  __shared__ int dv[SEG_K], dc[SEG_K], dbl[SEG_K];  // D': rank, count, bless
   const int lane = threadIdx.x;
   const int chain = blockIdx.x;
   if (chain >= C * n_seg) return;
   const int SP = 32 * ((s + 31) / 32);
-  int* suf = GMEM ? sets + (size_t)chain * 2 * N : smem;
-  int* pre = suf + N;
+  int* S = GMEM ? sets + (size_t)chain * N : smem;  // the base B_m
   const int row = chain / n_seg;
   const int m = chain - row * n_seg;
   const size_t rb = (size_t)row * s_b;
   const size_t cb = (size_t)chain * SP;
   const bool tail = m + 1 == n_seg;  // the row's last segment: no ck_s[m+1]
-  for (int g = lane; g < N; g += 32) {
-    suf[g] = g < SP && !tail ? __ldg(ck_s + cb + SP + g) : RSENT;
-    pre[g] = g < SP ? __ldg(ck_p + cb + g) : RSENT;
-  }
+  // the base: bottom-s of ck_s[m+1] U ck_p[m]
+  const int size =
+      merge_base(ck_s + cb + SP, ck_p + cb, tail ? 0 : SP, SP, S, s, lane);
+  for (int g = size + lane; g < N; g += 32) S[g] = RSENT;
   __syncwarp();
+  const int top = S[s - 1];  // RSENT while the base holds fewer than s
   const int j0 = m * SEG_K;
   const int j1 = min(j0 + SEG_K, s_b);
-  // prologue: the segment's eviction log, walking it backward from
-  // S(j1) = ck_s[m+1] to S(j0) = ck_s[m]; a chunk's candidates
-  // (v < slot s-1) go in from its highest lane down, and lane l keeps
-  // ev[j0 + 32q + l] in ev[q]
-  int ev[SEG_W];
-  {
-    int last = suf[s - 1];
+  const unsigned below = (1u << lane) - 1u;
+  // the segment's ranks, lane l holding offset j0 + 32q + l in slot q;
+  // useful: below the base's s-th and not in the base
+  int cv[SEG_W], nv[SEG_W], cbl[SEG_W], nb[SEG_W];
+  unsigned cu[SEG_W], nu[SEG_W];  // ballots of the useful ones
 #pragma unroll
-    for (int qi = 0; qi < SEG_W; ++qi) {
-      const int q = SEG_W - 1 - qi;
-      const int j = j0 + 32 * q + lane;
-      const int v = j < j1 ? __ldg(cur + rb + j) : RSENT;
-      int e = -1;
-      unsigned cand = __ballot_sync(FULL_MASK, v < last);
-      int lsrc = 31 - __clz(cand);
-      int x = __shfl_sync(FULL_MASK, v, lsrc & 31);
-      while (cand) {
-        cand &= ~(1u << lsrc);
-        const int nsrc = 31 - __clz(cand);
-        const int xn = __shfl_sync(FULL_MASK, v, nsrc & 31);
-        const int old = last;
-        if (x < last && set_insert(suf, N, x, s, lane, last) && lane == lsrc)
-          e = old;
-        lsrc = nsrc;
-        x = xn;
-      }
-      ev[q] = e;
-    }
+  for (int q = 0; q < SEG_W; ++q) {
+    const int j = j0 + 32 * q + lane;
+    cv[q] = j < j1 ? __ldg(cur + rb + j) : RSENT;
+    nv[q] = j < j1 ? __ldg(nxt + rb + j) : RSENT;
+    bool in_c = true, in_n = true;
+    cbl[q] = cv[q] < top ? count_lt(S, N, cv[q], in_c) : 0;
+    nb[q] = nv[q] < top ? count_lt(S, N, nv[q], in_n) : 0;
+    cu[q] = __ballot_sync(FULL_MASK, !in_c);
+    nu[q] = __ballot_sync(FULL_MASK, !in_n);
   }
-  int plast = pre[s - 1];
-  int th = RSENT, ucnt = 0;
-  bool stale = true;
-  for (int cb0 = j0; cb0 < j1; cb0 += 32) {
+  // D' at j0 from the useful ranks of cur[j0:j1]: compacted in offset
+  // order into dc (ci), a rank's first copy keeps it (kept ones in dbl),
+  // its count is its copies, its place the kept ranks below it
+  int ci[SEG_W], U = 0;
+#pragma unroll
+  for (int q = 0; q < SEG_W; ++q) {
+    ci[q] = U + __popc(cu[q] & below);
+    if ((cu[q] >> lane) & 1) dc[ci[q]] = cv[q];
+    U += __popc(cu[q]);
+  }
+  __syncwarp();
+  int cnt[SEG_W];
+  bool first[SEG_W];
+#pragma unroll
+  for (int q = 0; q < SEG_W; ++q) {
+    const bool mine = (cu[q] >> lane) & 1;
+    cnt[q] = 0;
+    first[q] = mine;
+    for (int u = 0; mine && u < U; ++u) {
+      const int y = dc[u];
+      cnt[q] += y == cv[q] ? 1 : 0;
+      first[q] = first[q] && !(u < ci[q] && y == cv[q]);
+    }
+    if (mine) dbl[ci[q]] = first[q] ? cv[q] : RSENT;
+  }
+  __syncwarp();
+  int rk[SEG_W], L = 0;
+#pragma unroll
+  for (int q = 0; q < SEG_W; ++q) {
+    rk[q] = 0;
+    for (int u = 0; first[q] && u < U; ++u) rk[q] += dbl[u] < cv[q] ? 1 : 0;
+    L += __popc(__ballot_sync(FULL_MASK, first[q]));
+  }
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < SEG_W; ++q) {
+    if (first[q]) {
+      dv[rk[q]] = cv[q];
+      dc[rk[q]] = cnt[q];
+      dbl[rk[q]] = cbl[q];
+    }
+    if (32 * q + lane >= L) dv[32 * q + lane] = RSENT;
+  }
+  __syncwarp();
+  int th = delta_theta(dv, dbl, L, S, s, lane);
+  // the walk: a step from j to j+1 takes one cur[j] out of D(j) and puts
+  // nxt[j] in; only where either is useful (and they differ) can D'
+  // change, and theta is recomputed only where an entry came or went
+#pragma unroll
+  for (int q = 0; q < SEG_W; ++q) {
+    const int cb0 = j0 + 32 * q;
+    if (cb0 >= j1) break;  // warp-uniform
     const int j = cb0 + lane;
-    const bool in = j < j1;
-    const int cv = in ? __ldg(cur + rb + j) : RSENT;
-    const int nv = in ? __ldg(nxt + rb + j) : RSENT;
-    const int evv = in ? pick(ev, (cb0 - j0) >> 5) : -1;
-    // only the offsets where a set may change are visited (theta.cu)
-    unsigned events =
-        __ballot_sync(FULL_MASK, in && (evv != -1 || nv < plast));
+    unsigned events = __ballot_sync(FULL_MASK, j + 1 < j1 && cv[q] != nv[q])
+                      & (cu[q] | nu[q]);
     const int n = min(32, j1 - cb0);
     int mine = RSENT, done = 0;  // offsets cb0 .. cb0+done-1 have theta
     for (;;) {
-      const int t = events ? __ffs(events) - 1 : n;
-      const int upto = events ? t + 1 : n;
-      if (upto > done) {
-        if (stale) {
-          th = merge_theta(suf, pre, N, s, lane, ucnt);
-          stale = false;
-        }
-        if (lane >= done && lane < upto) mine = th;
-        done = upto;
-      }
+      const int t = events ? __ffs(events) - 1 : n - 1;
+      if (lane >= done && lane <= t) mine = th;
+      done = t + 1;
       if (!events) break;
       events &= events - 1u;
-      const int e = __shfl_sync(FULL_MASK, evv, t);
-      const int x = __shfl_sync(FULL_MASK, cv, t);
-      const int v = __shfl_sync(FULL_MASK, nv, t);
-      const bool s_chg = e != -1;
-      if (s_chg) set_remove_append(suf, N, x, e, s, lane);
-      bool p_chg = false;
-      const int p_out = plast;  // what an insert pushes out of slot s-1
-      if (v < plast && set_insert(pre, N, v, s, lane, plast)) p_chg = true;
-      const bool s_low = s_chg && x <= th;
-      const bool p_low = p_chg && v <= th;
-      if (s_low || p_low) {
-        if (th != RSENT && p_chg && p_out == th)
-          stale = true;  // merge in full at the next offset
-        else
-          th = step_theta(th, ucnt, suf, pre, N, x, s_low, v, p_low, s_chg,
-                          s);
-      }
+      const int x = __shfl_sync(FULL_MASK, cv[q], t);
+      const int v = __shfl_sync(FULL_MASK, nv[q], t);
+      const int vb = __shfl_sync(FULL_MASK, nb[q], t);
+      bool chg = false;
+      if ((cu[q] >> t) & 1) chg = delta_remove(dv, dc, dbl, L, x, lane);
+      if ((nu[q] >> t) & 1)
+        chg = delta_add(dv, dc, dbl, L, v, vb, lane) || chg;
+      if (chg) th = delta_theta(dv, dbl, L, S, s, lane);
     }
-    if (in) out[rb + j] = mine;
+    if (j < j1) out[rb + j] = mine;
   }
 }
 
@@ -421,7 +443,7 @@ theta_wide_chain_kernel(const int* __restrict__ cur,
 
 template <bool GMEM>
 static size_t smem_bytes(int N) {
-  return GMEM ? 0 : sizeof(int) * (size_t)2 * N;
+  return GMEM ? 0 : sizeof(int) * (size_t)N;
 }
 
 // allow kernel B's blocks their dynamic shared memory (above 48 KB only
@@ -474,8 +496,8 @@ static cudaError_t occupancy(int s, int* warps_a, int* warps_b) {
 }
 
 // Launch both kernels on `stream`. scratch holds 2*C*n_seg*SP ints (the S
-// checkpoints, the P checkpoints), and with gmem another 2*C*n_seg*N for
-// kernel B's sets. gmem = 0 puts those sets in shared memory and needs
+// checkpoints, the P checkpoints), and with gmem another C*n_seg*N for
+// kernel B's bases. gmem = 0 puts the bases in shared memory and needs
 // s <= 16384. K must be SEG_K (128).
 extern "C" int theta_wide_launch(const void* cur, const void* nxt, void* out,
                                  void* scratch, int C, int s_b, int s, int K,

@@ -8,9 +8,9 @@ twin ``winnow.py::_theta_chunk``): for (C, S_B) int32 block rows,
 
 On a CUDA tensor it launches ``csrc/theta.cu`` for s <= S_MAX = 512 (the
 sets in registers, 16 slots a lane) and ``csrc/theta_wide.cu`` above it
-(kernel B's sets in shared memory, or for s > WIDE_SMEM_S_MAX in the
-device scratch); both are built with nvcc for sm_90a at first use and loaded
-with ctypes. On a CPU tensor it runs the plain version
+(kernel B's one set a chain in shared memory, or for s > WIDE_SMEM_S_MAX
+in the device scratch); both are built with nvcc for sm_90a at first use
+and loaded with ctypes. On a CPU tensor it runs the plain version
 ``theta_chunk_ref``, at any s. The route follows from s and the device;
 nothing falls back from one to another.
 
@@ -19,14 +19,18 @@ Kernel A stores each row's suffix and prefix sets at every K-th offset:
 theta.cu walks the row once per direction and also logs what each insert
 of the suffix walk pushed out; theta_wide.cu merges one segment of K
 ranks at a time into the previous checkpoint (a scan over segments, no
-walk). Kernel B runs one independent chain per (row, K-offset segment)
-(theta_wide.cu's first walks its segment backward from the next suffix
-checkpoint to make that segment's eviction log), steps both sets forward
-from its checkpoints, merges them in full at the segment's first offset
-and otherwise moves theta by one place where a change lands at or below
-it (or, under fewer than s ranks, counts the union until it holds s).
-The rows' C * S_B / K chains keep the SMs busy, where one warp per row
-would leave each row's dependent chain to set the time.
+walk). Kernel B runs one independent chain per (row, K-offset segment).
+theta.cu's steps both sets forward from its checkpoints, merges them in
+full at the segment's first offset and otherwise moves theta by one
+place where a change lands at or below it (or, under fewer than s ranks,
+counts the union until it holds s). theta_wide.cu's merges the next
+suffix checkpoint and its prefix checkpoint once into a read-only base
+B_m (bottom-s of the ranks outside the segment) and keeps the segment's
+window D(j) as a sorted delta of at most K ranks, those that can move
+theta: theta(j) is the s-th distinct rank of B_m U D(j), read off the
+delta's ranks in the union. The rows' C * S_B / K chains keep the SMs
+busy, where one warp per row would leave each row's dependent chain to
+set the time.
 """
 
 from __future__ import annotations
@@ -41,9 +45,9 @@ from . import nvcc
 
 RSENT = int(np.iinfo(np.int32).max)  # "+inf" rank
 S_MAX = 512                           # theta.cu: 16 register slots a lane
-# theta_wide.cu keeps kernel B's two sets (2 x N ints, N = SP rounded up
-# to a power of two) in one block's shared memory while they fit its
-# 227 KB, N <= 16384; above this s they live in the device scratch
+# theta_wide.cu keeps kernel B's base (N ints a chain, N = SP rounded up
+# to a power of two) in one block's shared memory up to N = 16384; above
+# this s the bases live in the device scratch
 WIDE_SMEM_S_MAX = 16384
 
 LAUNCHES = 0                          # theta.cu launches (not ref calls)
@@ -115,28 +119,27 @@ def kernel_geometry(s: int, s_b: int):
 
 
 def wide_set_len(s: int) -> int:
-    """N, the length of one of theta_wide.cu's sets: SP rounded up to a
-    power of two (its binary searches' length)."""
+    """N, the length of theta_wide.cu's base, a chain's one set: SP
+    rounded up to a power of two (its binary searches' length)."""
     return 1 << max(5, (kernel_geometry(s, 1)[0] - 1).bit_length())
 
 
 def wide_sets_in_scratch(s: int) -> bool:
-    """Whether theta_wide.cu keeps its sets in the device scratch (not in
-    shared memory) at sketch size s."""
+    """Whether theta_wide.cu keeps its bases in the device scratch (not
+    in shared memory) at sketch size s."""
     return s > WIDE_SMEM_S_MAX
 
 
 def scratch_ints_per_row(s: int, s_b: int) -> int:
     """Kernel scratch per row: S and P checkpoints; for theta.cu the
-    eviction log, and where theta_wide.cu keeps its sets in the scratch,
-    kernel B's two sets per chain (theta_wide.cu's chains keep their
-    eviction logs in registers)."""
+    eviction log, and where theta_wide.cu keeps its bases in the scratch,
+    kernel B's one base per chain."""
     sp, _, n_seg = kernel_geometry(s, s_b)
     n = 2 * n_seg * sp
     if s <= S_MAX:
         n += s_b
     elif wide_sets_in_scratch(s):
-        n += 2 * n_seg * wide_set_len(s)
+        n += n_seg * wide_set_len(s)
     return n
 
 

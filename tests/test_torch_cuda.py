@@ -77,6 +77,8 @@ def test_kernel_matches_plain_version(cuda, C, s_b, s, invalid_frac,
     (2, 17000, 16400, 0.0, 1 << 30),  # the sets in the device scratch
     (64, 4982, 680, 0.02, 4),        # 4 letters: the scan's dedupe
     (64, 4096, 680, 0.0, None),      # S_B a multiple of the segment
+    (16, 700, 600, 0.0, 1 << 30),    # the union just above s: short bases
+    (16, 4982, 3780, 0.02, 9000),    # alphabet near 2s: ranks in the base
 ])
 def test_wide_kernel_matches_plain_version(cuda, C, s_b, s, invalid_frac,
                                            alphabet):

@@ -4,6 +4,10 @@ On the CPU the wrapper runs its plain version; the CUDA kernel is held
 against the same plain version in tests/test_torch_cuda.py.
 """
 
+import functools
+import os
+import sys
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -13,6 +17,9 @@ from mashmap_tpu.kernels import winnow as jw
 from mashmap_tpu.kernels.winnow_pallas import theta_chunk_pallas, C_T
 from mashmap_tpu_torch.kernels import theta as tt
 from mashmap_tpu_torch.kernels import winnow as tw
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
 RSENT = tt.RSENT
 
@@ -118,8 +125,7 @@ def test_theta_ref_matches_pallas_above_s_max():
     cur, nxt = _blocks(34, C_T, 513, 560, 0.05)
     ours = tt.theta_chunk(torch.from_numpy(cur), torch.from_numpy(nxt),
                           513, 560).numpy()
-    pallas = np.asarray(theta_chunk_pallas(
-        jnp.asarray(cur), jnp.asarray(nxt), 513, 560, interpret=True))
+    pallas = _pallas_theta(34, 513, 560, 128, 0.05, None, None)
     np.testing.assert_array_equal(ours, pallas)
 
 
@@ -229,18 +235,32 @@ def _model_serial_checkpoints(cur, nxt, s, K):
     return ck_s, ck_p, ev
 
 
-def _model_theta_row(cur, nxt, s, K, merge=None, step=None, scan=False):
+def _model_theta_row(cur, nxt, s, K, merge=None, step=None, scan=False,
+                     delta=False):
     """theta of one block row by the kernel's schedule; returns (theta,
     counts): full merges, incremental updates, offsets where a set
     changed. merge and step are the set operations (theta.cu's by
-    default; theta_wide.cu's below). scan takes the checkpoints from
-    theta_wide.cu's scan over segments and each chain's ev from its own
-    backward walk (_model_chain_prologue), in place of theta.cu's serial
-    walks."""
-    merge = merge or _model_merge_count
-    step = step or _model_step_theta
+    default; a chain that steps two sorted arrays below). scan takes the
+    checkpoints from theta_wide.cu's scan over segments and each chain's
+    ev from its own backward walk (_model_chain_prologue), in place of
+    theta.cu's serial walks. delta is theta_wide.cu's kernel B: the scan's
+    checkpoints, then each chain's theta from its base and its delta
+    (_model_chain_base, _model_chain_delta); counts are then one row a
+    chain of _model_chain_delta's counts."""
     s_b = len(cur)
     n_seg = -(-s_b // K)
+    if delta:
+        ck_s = _model_scan_checkpoints(cur, s, K, suffix=True)
+        ck_p = _model_scan_checkpoints(nxt, s, K, suffix=False)
+        out = np.empty(s_b, dtype=np.int64)
+        counts = np.zeros((n_seg, 4), dtype=np.int64)
+        for m in range(n_seg):
+            base = _model_chain_base(ck_s, ck_p, m, s)
+            out[m * K:m * K + K], counts[m] = _model_chain_delta(
+                cur, nxt, base, m, s, K)
+        return out, counts
+    merge = merge or _model_merge_count
+    step = step or _model_step_theta
     if scan:
         ck_s = _model_scan_checkpoints(cur, s, K, suffix=True)
         ck_p = _model_scan_checkpoints(nxt, s, K, suffix=False)
@@ -282,11 +302,13 @@ def _model_theta_row(cur, nxt, s, K, merge=None, step=None, scan=False):
     return out, counts
 
 
-def _model_theta(cur, nxt, s, K, merge=None, step=None, scan=False):
-    rows = [_model_theta_row(c, n, s, K, merge, step, scan)
+def _model_theta(cur, nxt, s, K, merge=None, step=None, scan=False,
+                 delta=False):
+    rows = [_model_theta_row(c, n, s, K, merge, step, scan, delta)
             for c, n in zip(cur, nxt)]
+    counts = [r[1] for r in rows]
     return (np.stack([r[0] for r in rows]).astype(np.int32),
-            sum(r[1] for r in rows))
+            np.concatenate(counts) if delta else sum(counts))
 
 
 @pytest.mark.parametrize("seed,s,s_b,K,invalid_frac,alphabet", [
@@ -388,10 +410,12 @@ def test_schedule_model_on_longer_rows(seed, s, alphabet):
         assert merges < 0.25 * changed
 
 
-# --- CPU model of theta_wide.cu's set operations --------------------------
+# --- CPU model of a chain that steps two sorted arrays ---------------------
 #
-# theta_wide.cu runs the schedule above with each set as a sorted array of
-# N = wide_set_len(s) ints, RSENT past its elements. Membership, positions
+# The schedule above with each set as a sorted array of N = wide_set_len(s)
+# ints, RSENT past its elements, the set operations done as a warp would
+# do them on arrays in memory (theta_wide.cu's chains take theta from a
+# base and a delta instead, modelled further down). Membership, positions
 # and theta's neighbours are a branch-free binary search (count_lt); the
 # merge walks one set's slots 32 at a time (a warp), ranks each live x in
 # the distinct union by g + 1 + #(other <= x) - (a ballot's running count
@@ -479,7 +503,7 @@ def _wide_step_theta(th, ucnt, suf, pre, x, s_low, v, p_low, s_chg, s):
     (45, 100, 130, 32, 0.02, 8),      # 8-letter alphabet
 ])
 def test_wide_model_matches_ref(seed, s, s_b, K, invalid_frac, alphabet):
-    """theta_wide.cu's set operations, modelled on the CPU inside the
+    """The two-array set operations, modelled on the CPU inside the
     schedule, give the plain version's theta exactly, with the schedule's
     merges and steps (as theta.cu's model counts them)."""
     cur, nxt = _blocks(seed, 6, s, s_b, invalid_frac, alphabet)
@@ -493,9 +517,10 @@ def test_wide_model_matches_ref(seed, s, s_b, K, invalid_frac, alphabet):
 
 
 def test_wide_model_at_the_first_wide_s():
-    """The wide model at s = 513 (17 warp chunks, N = 1024), on contig
-    end rows too (nxt all RSENT), with theta.cu's serial checkpoints and
-    with theta_wide.cu's scan and chain prologues."""
+    """The two-array model at s = 513 (17 warp chunks, N = 1024), on
+    contig end rows too (nxt all RSENT), with theta.cu's serial
+    checkpoints and with theta_wide.cu's scan and chain prologues; and
+    theta_wide.cu's base and delta on the same rows."""
     cur, nxt = _blocks(46, 2, 513, 700, 0.02)
     nxt[1] = RSENT
     ref = tt.theta_chunk_ref(torch.from_numpy(cur), torch.from_numpy(nxt),
@@ -504,6 +529,8 @@ def test_wide_model_at_the_first_wide_s():
         got, _ = _model_theta(cur, nxt, 513, 128, _wide_merge,
                               _wide_step_theta, scan)
         np.testing.assert_array_equal(got, ref)
+    got, _ = _model_theta(cur, nxt, 513, 128, delta=True)
+    np.testing.assert_array_equal(got, ref)
     _assert_scan_matches_serial(cur, nxt, 513, 128)
     assert (ref[1] == RSENT).any() and (ref != RSENT).any()
 
@@ -627,6 +654,16 @@ def _scan_blocks(seed, C, s, s_b, K, invalid_frac, alphabet, blank):
     return cur, nxt
 
 
+@functools.lru_cache(maxsize=None)
+def _pallas_theta(seed, s, s_b, K, invalid_frac, alphabet, blank):
+    """The Pallas kernel (interpret mode) on _scan_blocks' C_T rows, once
+    per edge for every test of this module that holds a model to it."""
+    cur, nxt = _scan_blocks(seed, C_T, s, s_b, K, invalid_frac, alphabet,
+                            blank)
+    return np.asarray(theta_chunk_pallas(
+        jnp.asarray(cur), jnp.asarray(nxt), s, s_b, interpret=True))
+
+
 @pytest.mark.parametrize("seed,s,s_b,K,invalid_frac,alphabet,blank",
                          SCAN_EDGES)
 def test_scan_checkpoints_match_serial_walk(seed, s, s_b, K, invalid_frac,
@@ -655,23 +692,235 @@ def test_scan_model_matches_ref_and_pallas(seed, s, s_b, K, invalid_frac,
     _, want_counts = _model_theta(cur, nxt, s, K)
     ref = tt.theta_chunk_ref(torch.from_numpy(cur), torch.from_numpy(nxt),
                              s, s_b).numpy()
-    pallas = np.asarray(theta_chunk_pallas(
-        jnp.asarray(cur), jnp.asarray(nxt), s, s_b, interpret=True))
+    pallas = _pallas_theta(seed, s, s_b, K, invalid_frac, alphabet, blank)
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(got, pallas)
     np.testing.assert_array_equal(counts, want_counts)
 
 
+# --- CPU model of theta_wide.cu's kernel B: a base and a delta ------------
+#
+# For offset j of segment m (j0 = m*K, j1 = min(j0 + K, S_B)) two facts
+# make theta a function of one read-only set and at most K ranks: bottom-s
+# of a union is associative, and the s-th distinct rank of X U Y is the
+# s-th of X U bottom_s(Y). So
+#     theta(j) = s-th distinct rank of B_m U D(j),
+#     B_m  = bottom_s(ck_s[m+1] U ck_p[m])    (cur[j1:] and nxt[:j0]),
+#     D(j) = cur[j:j1] U nxt[j0:j]            (a multiset of j1 - j0 ranks).
+# Kernel B builds B_m once per chain by a warp merge of the checkpoints:
+# each round takes the next 32 slots of each, whose smallest 32 are the
+# merge's next 32 (ck_s[m+1]'s copy first where both hold a rank); a rank
+# goes to its lane plus the other window's ranks below it (at or below it
+# for ck_p[m]'s), a ck_p[m] rank that the other window or the last
+# ck_s[m+1] rank merged holds is dropped, the rest go to their places in
+# the distinct union below s; RSENT fills the slots from its size up. Only D(j)'s useful ranks can move theta: v < B_m[s-1] and v not
+# in B_m (B_m[s-1] is RSENT when B_m is short, so the one test also drops
+# RSENT). D' holds them sorted and distinct, each with its count in D(j)
+# and bless = #(B_m < v); its i-th entry has place i + 1 + bless in the
+# union, so theta is the entry of place s, or else B_m[s-1-t], t the
+# entries of place below s. A step from j to j+1 takes one cur[j] out of
+# D(j) and puts nxt[j] in (nothing where the two are equal): a count
+# moves, or an entry is deleted or inserted, and only then is theta
+# recomputed. The model below is that in plain Python.
+
+
+def _model_chain_base(ck_s, ck_p, m, s):
+    """Kernel B's base B_m of chain m, the N slots of its one set:
+    bottom-s of ck_s[m+1] (empty for the row's last segment) U ck_p[m],
+    merged as the warp merges them, 32 slots of each checkpoint a round,
+    RSENT past the union's size."""
+    sp = 32 * -(-s // 32)
+    lanes = np.arange(32)
+
+    def slots(ck):
+        x = np.full(sp + 32, RSENT, dtype=np.int64)
+        x[:len(ck)] = ck
+        return x
+
+    A = slots(ck_s[m + 1] if m + 1 < len(ck_s) else [])
+    P = slots(ck_p[m])
+    out = np.full(tt.wide_set_len(s), -1, dtype=np.int64)
+    ia = ip = size = 0
+    last_a = RSENT
+    while size < s:
+        a, p = A[ia + lanes], P[ip + lanes]
+        if a[0] == RSENT and p[0] == RSENT:
+            break
+        ra = np.searchsorted(p, a)              # P's window below a
+        c = np.searchsorted(a, p)               # A's window below p
+        in_a = (c < 32) & (a[c & 31] == p)
+        dup = (p != RSENT) & (in_a | (p == last_a))
+        qa, qp = lanes + ra, lanes + c + in_a   # places in this round
+        da = size + qa - np.array([dup[:r].sum() for r in ra])
+        dp = size + qp - (np.cumsum(dup) - dup)
+        ta = (qa < 32) & (a != RSENT)
+        tp = (qp < 32) & (p != RSENT) & ~dup
+        for q, v in zip(np.r_[da[ta], dp[tp]], np.r_[a[ta], p[tp]]):
+            if q < s:
+                assert out[q] == -1             # one writer a slot
+                out[q] = v
+        n_a = int((qa < 32).sum())
+        size += int(ta.sum() + tp.sum())
+        if n_a:
+            last_a = a[n_a - 1]
+        ia += n_a
+        ip += 32 - n_a
+    size = min(size, s)
+    assert (out[:size] != -1).all() and (out[size:] == -1).all()
+    out[size:] = RSENT
+    return out
+
+
+def _model_delta_theta(D, base, s):
+    """theta from D' and the base: the entry of place s, else
+    B_m[s-1-t] for the t entries of place below s."""
+    t = 0
+    for i, (v, _, bless) in enumerate(D):
+        r = i + 1 + bless
+        if r == s:
+            return v
+        t += r < s
+    return int(base[s - 1 - t])
+
+
+def _model_chain_delta(cur, nxt, base, m, s, K):
+    """Kernel B's walk of segment m from its base (N slots): theta at each
+    of its offsets, and the chain's counts (the useful ranks of
+    cur[j0:j1], D' inserts, D' deletes, D''s largest length)."""
+    j0, j1 = m * K, min(m * K + K, len(cur))
+    top = base[s - 1]
+
+    def useful(v):
+        bless, member = _wide_count_lt(base, v)
+        return bool(v < top and not member), bless
+
+    # D' at j0, as the warp builds it from the segment's useful cur ranks
+    # compacted in offset order: a rank's first copy keeps it, its count
+    # is its copies, its place the kept ranks below it
+    stage = [(int(v), useful(int(v))) for v in cur[j0:j1]]
+    stage = [(v, bless) for v, (ok, bless) in stage if ok]
+    vals = [v for v, _ in stage]
+    D = [None] * len(set(vals))
+    for i, (v, bless) in enumerate(stage):
+        if v not in vals[:i]:
+            rk = len({u for u in vals if u < v})
+            assert D[rk] is None
+            D[rk] = [v, vals.count(v), bless]
+    inserts = deletes = 0
+    longest = len(D)
+    th = _model_delta_theta(D, base, s)
+    out = np.empty(j1 - j0, dtype=np.int64)
+    for j in range(j0, j1):
+        out[j - j0] = th
+        x, v = int(cur[j]), int(nxt[j])
+        if j + 1 == j1 or x == v:
+            continue
+        (x_ok, _), (v_ok, v_bless) = useful(x), useful(v)
+        changed = False
+        if x_ok:                                # one copy of x leaves
+            i = int(np.searchsorted([d[0] for d in D], x))
+            assert D[i][0] == x
+            D[i][1] -= 1
+            if D[i][1] == 0:
+                del D[i]
+                deletes += 1
+                changed = True
+        if v_ok:                                # one copy of v enters
+            i = int(np.searchsorted([d[0] for d in D], v))
+            if i < len(D) and D[i][0] == v:
+                D[i][1] += 1
+            else:
+                D.insert(i, [v, 1, v_bless])
+                inserts += 1
+                changed = True
+        longest = max(longest, len(D))
+        if changed:
+            th = _model_delta_theta(D, base, s)
+    return out, (len(stage), inserts, deletes, longest)
+
+
+# SCAN_EDGES, and (seed, s, S_B, K, RSENT fraction, alphabet, blank)
+DELTA_EDGES = SCAN_EDGES + [
+    (61, 100, 110, 32, 0.0, None, None),    # B_m short of s, the union not
+    (62, 40, 45, 32, 0.0, 1 << 20, None),   # ... S_B just above s
+    (34, 513, 560, 128, 0.05, None, None),  # the first s of theta_wide.cu
+]
+
+
+@pytest.mark.parametrize("seed,s,s_b,K,invalid_frac,alphabet,blank",
+                         DELTA_EDGES)
+def test_delta_model_matches_ref_and_pallas(seed, s, s_b, K, invalid_frac,
+                                            alphabet, blank):
+    """theta_wide.cu's kernel B, modelled as a base and a delta on the
+    scan's checkpoints, equals the plain version and the Pallas kernel
+    (interpret mode) exactly; no D' ever holds more than K entries, and
+    each ends with its inserts less its deletes added."""
+    cur, nxt = _scan_blocks(seed, C_T, s, s_b, K, invalid_frac, alphabet,
+                            blank)
+    got, counts = _model_theta(cur, nxt, s, K, delta=True)
+    ref = tt.theta_chunk_ref(torch.from_numpy(cur), torch.from_numpy(nxt),
+                             s, s_b).numpy()
+    pallas = _pallas_theta(seed, s, s_b, K, invalid_frac, alphabet, blank)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, pallas)
+    assert counts.shape == (C_T * -(-s_b // K), 4)
+    assert (counts[:, 3] <= K).all() and (counts[:, 0] <= K).all()
+
+
+@pytest.mark.parametrize("seed,s,s_b,K,invalid_frac,alphabet,blank",
+                         DELTA_EDGES)
+def test_chain_base_is_bottom_s_of_the_rest(seed, s, s_b, K, invalid_frac,
+                                            alphabet, blank):
+    """Each chain's base, placed by ranks from the two checkpoints, is
+    bottom_s(cur[j1:] U nxt[:j0]) computed directly, RSENT past it."""
+    cur, nxt = _scan_blocks(seed, 6, s, s_b, K, invalid_frac, alphabet,
+                            blank)
+    for c, n in zip(cur, nxt):
+        ck_s = _model_scan_checkpoints(c, s, K, suffix=True)
+        ck_p = _model_scan_checkpoints(n, s, K, suffix=False)
+        for m in range(len(ck_s)):
+            j0, j1 = m * K, min(m * K + K, s_b)
+            rest = np.unique(np.concatenate([c[j1:], n[:j0]]))
+            want = np.full(tt.wide_set_len(s), RSENT, dtype=np.int64)
+            low = rest[rest != RSENT][:s]
+            want[:len(low)] = low
+            np.testing.assert_array_equal(
+                _model_chain_base(ck_s, ck_p, m, s), want)
+
+
+@pytest.mark.parametrize("seed,s,s_b,K,invalid_frac,alphabet,blank",
+                         DELTA_EDGES)
+def test_host_delta_counts_match_model(seed, s, s_b, K, invalid_frac,
+                                       alphabet, blank):
+    """chip_smoke.py's host count of kernel B's rule (vectorised over
+    rows, from the checkpoints) gives the model's D' inserts, deletes and
+    largest length a chain."""
+    import chip_smoke
+    cur, nxt = _scan_blocks(seed, 6, s, s_b, K, invalid_frac, alphabet,
+                            blank)
+    _, counts = _model_theta(cur, nxt, s, K, delta=True)
+    ck = [[], []]
+    for c, n in zip(cur, nxt):
+        ck[0].append(_model_scan_checkpoints(c, s, K, suffix=True) + [[]])
+        ck[1].append(_model_scan_checkpoints(n, s, K, suffix=False))
+    ck_s, ck_p = ({m: np.stack([_wide_array(r[m], s)[:s] for r in rows])
+                   for m in range(len(rows[0]))} for rows in ck)
+    got = chip_smoke.delta_counts(cur, nxt, s, K, ck_s, ck_p)
+    assert got["chains"] == len(counts)
+    assert (got["delta_ins"], got["delta_del"], got["delta_top"]) == \
+        tuple(int(x) for x in counts[:, 1:].sum(axis=0))
+    assert got["delta_max"] == counts[:, 3].max()
+
+
 @pytest.mark.parametrize("s,s_b,extra", [
     (130, 4982, 4982),                      # theta.cu: the eviction log
     (680, 4982, 0),                         # theta_wide.cu: none
-    (16400, 17000, 2 * 133 * (1 << 15)),    # kernel B's sets in the scratch
+    (16400, 17000, 133 * (1 << 15)),        # kernel B's bases in the scratch
 ])
 def test_scratch_per_row_by_route(s, s_b, extra):
     """The kernels' scratch per row: the two sets' checkpoints, plus
-    theta.cu's eviction log, or theta_wide.cu's sets where they live in
-    the scratch (its chains keep their eviction logs in registers); rows
-    per launch follow from it."""
+    theta.cu's eviction log, or theta_wide.cu's bases (one a chain) where
+    they live in the scratch; rows per launch follow from it."""
     sp, _, n_seg = tt.kernel_geometry(s, s_b)
     n = tt.scratch_ints_per_row(s, s_b)
     assert n == 2 * n_seg * sp + extra
