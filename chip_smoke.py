@@ -86,7 +86,19 @@ Phases, in order; any failure propagates and exits non-zero:
    launches (> 0, and none of theta.cu), path_stats, peak device memory,
    and the coverage gate; [small-pi78]: the small pangenome at --pi 78,
    card (the lifted cap: the device route) == CPU (the default cap: the
-   host route).
+   host route);
+12. [flagship]: the human-scale path at 62 Mbp: scripts/gen_flagship_data.py
+   --scale 0.02 writes a reference of 24 chromosomes and its assembly
+   (2.5% SNPs, whole contigs) into data/generated/; build_or_load_index
+   with --saveIndex, then map_files with --loadIndex of that npz at
+   --pi 95 (every other parameter at its default) on "cuda", theta.cu's
+   launches counted (> 0); the PAF's sha256 must equal
+   FLAGSHIP_S002_SHA256 (the JAX package's PAF on that pair), and every
+   assembly contig must pass the coverage gate; build s, map s, query
+   Mbp/s, PAF rows, path_stats and peak device memory; then theta.cu on
+   the build's block rows (one contig group) timed, and equal to its
+   plain version on the first FLAGSHIP_CHECK_ROWS of them. The pair and
+   the npz are removed at the end.
 
 Each path's theta launches are counted from 0 just before it is driven
 and read just after; a path that launched none fails the run. The line
@@ -142,6 +154,21 @@ L2_CUT_BP = 20_000
 NO_L2_BUDGET = 1 << 62
 # one contig just over the default rank limit of 2^28 k-mer positions
 OVERLIMIT_BP = 270_000_000
+
+# [flagship]: scripts/gen_flagship_data.py's pair at this scale (seed 314,
+# 62.47 MB each), mapped at --pi 95 (k = 19, w = 5000, auto s = 20)
+FLAGSHIP_SCALE = 0.02
+PI_FLAGSHIP = 0.95
+# sha256 of the JAX package's PAF on that pair, on the CPU:
+#   python scripts/gen_flagship_data.py --scale 0.02
+#   JAX_PLATFORMS=cpu python -m mashmap_tpu.cli -r hg3g_s0.02.fa \
+#       -q hg3g_asm_s0.02.fa --pi 95 --saveIndex jax_s002 -o jax.paf
+# (33 rows; the port's CPU run of the same flags writes the same bytes
+# and the same npz arrays)
+FLAGSHIP_S002_SHA256 = ("d7956da3ea56ac49541adf7ca1c1c723"
+                        "15219053711c2baa5d74f376b56a1920")
+# theta.cu against its plain version on this many of the build's rows
+FLAGSHIP_CHECK_ROWS = 1024
 
 # theta kernel against its plain version: (C, S_B, s) x RSENT fraction,
 # on ranks drawn from [0, 4 * S_B)
@@ -1427,6 +1454,112 @@ def l2_widths_line(tag, p, m):
     return cut
 
 
+def flagship_phase(device):
+    """[flagship]: the human-scale path at 62 Mbp through the entry
+    points a user calls: build_or_load_index with --saveIndex, then
+    map_files with --loadIndex on the card, theta launches counted from
+    0 before the build and read after the map. Gates: the PAF's sha256
+    == FLAGSHIP_S002_SHA256, theta.cu launched, every assembly contig's
+    coverage >= 0.92. Then theta.cu on the build's block rows, timed and
+    held to its plain version. Returns theta.cu's launches."""
+    import torch
+    from mashmap_tpu_torch.api import build_or_load_index, map_files
+    from mashmap_tpu_torch.io import for_each_seq_in_file
+    from mashmap_tpu_torch.kernels import theta
+    from mashmap_tpu_torch.params import Parameters
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable,
+                    os.path.join(HERE, "scripts", "gen_flagship_data.py"),
+                    "--scale", f"{FLAGSHIP_SCALE:g}"], check=True,
+                   capture_output=True)
+    ref = os.path.join(DATA, f"hg3g_s{FLAGSHIP_SCALE:g}.fa")
+    asm = os.path.join(DATA, f"hg3g_asm_s{FLAGSHIP_SCALE:g}.fa")
+    npz = os.path.join(DATA, "smoke_flagship.idx.npz")
+    out = os.path.join(DATA, "smoke_flagship.paf")
+    try:
+        print(f"[flagship] generated {os.path.getsize(ref)} + "
+              f"{os.path.getsize(asm)} bytes in {time.perf_counter() - t0} s")
+        lens = {n: len(q) for n, q in for_each_seq_in_file(asm)}
+        q_bp = sum(lens.values())
+        peak_bytes(device)
+        theta.LAUNCHES = theta.WIDE_LAUNCHES = 0
+        t0 = time.perf_counter()
+        pb = Parameters(ref_sequences=[ref], percentage_identity=PI_FLAGSHIP,
+                        save_index_filename=npz, no_progress=True).finalize()
+        idx = build_or_load_index(pb, device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        build_peak = peak_bytes(device)
+        pm = Parameters(ref_sequences=[ref], query_sequences=[asm],
+                        out_file_name=out, load_index_filename=npz,
+                        percentage_identity=PI_FLAGSHIP, no_progress=True)
+        mappers = []
+        with grab_mappers(mappers):
+            map_files(pm, device=device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = theta.LAUNCHES
+        with open(out) as fh:
+            paf = fh.read()
+        print(f"[flagship] k={pm.kmer_size} w={pm.seg_length} "
+              f"s={pm.sketch_size}: {len(idx.uniq_hashes)} unique minmers, "
+              f"{len(idx.mi_rank)} interval rows; build_s (with the save) "
+              f"{t1 - t0} map_s (with the load) {t2 - t1} query_bp={q_bp} "
+              f"query_mbp_per_s={q_bp / 1e6 / (t2 - t1)} "
+              f"paf_rows={paf.count(chr(10))} "
+              f"path_stats={mappers[0].path_stats} theta launches: theta.cu "
+              f"{launches}, theta_wide.cu {theta.WIDE_LAUNCHES}; "
+              f"max_memory_allocated build={build_peak} "
+              f"map={peak_bytes(device)}")
+        got = sha256(out)
+        if got != FLAGSHIP_S002_SHA256:
+            raise AssertionError(f"[flagship] PAF sha256 {got} != the JAX "
+                                 f"package's {FLAGSHIP_S002_SHA256}")
+        print("[flagship] PAF sha256 == FLAGSHIP_S002_SHA256 (the JAX "
+              "package's PAF)")
+        if launches <= 0:
+            raise AssertionError("[flagship] launched no theta.cu")
+        cov = coverage(paf.splitlines())
+        print(f"[flagship] coverage min="
+              f"{min(cov.values()) if cov else 0.0} of "
+              f"{len(cov)}/{len(lens)} assembly contigs")
+        bad = {n: cov.get(n, 0.0) for n in lens if cov.get(n, 0.0) < 0.92}
+        if bad:
+            raise AssertionError(f"[flagship] coverage gate failed: {bad}")
+        flagship_theta(ref, pb, device)
+    finally:
+        for path in (ref, asm, npz, out):
+            if os.path.exists(path):
+                os.remove(path)
+    return launches
+
+
+def flagship_theta(ref, p, device):
+    """theta.cu on the block rows of the flagship build (its one contig
+    group): the kernel's median ms over them, and the kernel equal to
+    its plain version on the first FLAGSHIP_CHECK_ROWS."""
+    import torch
+    from mashmap_tpu_torch.kernels import theta
+    cur, nxt = main_path_blocks(ref, p, device)
+    C, s_b = cur.shape
+    s = p.sketch_size
+    step = theta.theta_rows_per_launch(device, s, s_b)
+    ms = time_ms(lambda: [theta.theta_chunk(cur[c:c + step],
+                                            nxt[c:c + step], s, s_b)
+                          for c in range(0, C, step)], 5)
+    c, n = (x[:FLAGSHIP_CHECK_ROWS].contiguous() for x in (cur, nxt))
+    got = theta.theta_chunk(c, n, s, s_b)
+    err = max_abs_err(got, theta.theta_chunk_ref(c, n, s, s_b))
+    print(f"[flagship] theta.cu on the group's block rows C={C} S_B={s_b} "
+          f"s={s} in {-(-C // step)} launch(es): {ms} ms; max_abs_err="
+          f"{err} on the first {len(c)} rows")
+    if err != 0:
+        raise AssertionError("[flagship] theta.cu disagrees with its plain "
+                             "version on the flagship rows")
+    del cur, nxt
+    torch.cuda.empty_cache()
+
+
 def cutoff_table_job(fa, pi):
     """Compute the cutoff table of `fa` at --pi `pi` into
     $XDG_CACHE_HOME (the disk memo of stats.sketch_cutoffs) and print
@@ -1521,7 +1654,7 @@ def run():
 
 
 def phases(device, fa_main, fa_small, table_job, t_start):
-    """Phases 3 to 11 and the last two lines."""
+    """Phases 3 to 12 and the last two lines."""
     import torch
     from mashmap_tpu_torch.io import for_each_seq_in_file
     # 3. theta against its plain version, then times on the main path's
@@ -1571,6 +1704,9 @@ def phases(device, fa_main, fa_small, table_job, t_start):
     wide_by_path["small-pi78"] = card_vs_cpu(
         fa_small, device, PI_WIDE, "[small-pi78]",
         dict(l1_postings_cap=WIDE_P_CAP))[1]
+
+    # 12. the human-scale path at 62 Mbp, held to the JAX package's PAF
+    by_path["flagship"] = flagship_phase(device)
 
     rec = {"name": rec.pop("name"), "route": rec.pop("route"),
            "source": rec.pop("source"), "replaces": rec.pop("replaces"),

@@ -61,6 +61,23 @@ def test_port_imports_with_jax_blocked():
     assert r.returncode == 0, r.stderr
 
 
+@pytest.mark.parametrize("script", ["scripts/flagship_torch.py",
+                                    "chip_smoke.py"])
+def test_port_scripts_import_neither(script):
+    """The port's scripts that run on the card import neither JAX nor the
+    JAX package, by their source and when imported with both blocked."""
+    path = os.path.join(ROOT, script)
+    bad = [r for r in _imported_roots(path) if r in FORBIDDEN]
+    assert not bad, bad
+    code = ("import sys, importlib.util; sys.modules['jax'] = None; "
+            "sys.modules['mashmap_tpu'] = None; "
+            f"spec = importlib.util.spec_from_file_location('m', {path!r}); "
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
 def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
     """Without a device argument the entry points ask for CUDA and raise
     on a host without it, instead of running on the CPU."""
