@@ -98,13 +98,29 @@ Phases, in order; any failure propagates and exits non-zero:
    Mbp/s, PAF rows, path_stats and peak device memory; then theta.cu on
    the build's block rows (one contig group) timed, and equal to its
    plain version on the first FLAGSHIP_CHECK_ROWS of them. The pair and
-   the npz are removed at the end.
+   the npz are removed at the end;
+13. [configs]: BASELINE.json's other mapping configurations through
+   bench_extra_torch.py's functions on "cuda", at bench_extra.py's sizes
+   (its data and its cutoff tables at s = 20, 60, 120, 200 and 298 made
+   by a child process from phase 3 on): -f one-to-one at --pi 95 (the
+   coverage gate), 200 ONT-shaped reads against a 5 Mbp reference (the
+   mapped fraction), the --dense/-J sweep at --pi 90 (s = 298, 60, 120,
+   200; the ANI error of each) and two reference files (--rl); each run
+   is one map_files call and must pass bench_extra_torch.check (its
+   PAF's sha256 == EXTRA_SHA256, the JAX package's; bench_extra.py's
+   gates), each step's theta.cu launches are counted (> 0, none of
+   theta_wide.cu); the call's and its build's seconds, PAF rows,
+   path_stats and peak device memory; then theta.cu on
+   each build's block rows timed beside its bound, and it and its plain
+   version timed on the first CONFIG_CHECK_ROWS, where they must be
+   equal.
 
 Each path's theta launches are counted from 0 just before it is driven
 and read just after; a path that launched none fails the run. The line
 before the last is the kernels' JSON record (theta's "launches" are the
 main path's, the wide kernel's those of [wide-s] (a); "launches_by_path"
-those of every path); the last line is {"ok": true, "device": {...}}.
+those of every path; theta's "configs" the [configs] rows' times and
+bounds); the last line is {"ok": true, "device": {...}}.
 The cutoff tables go to a fresh $XDG_CACHE_HOME that the run removes,
 so every cold number is cold. Without a CUDA device, or without the
 rest of the repository beside it, the script fails before printing
@@ -169,6 +185,8 @@ FLAGSHIP_S002_SHA256 = ("d7956da3ea56ac49541adf7ca1c1c723"
                         "15219053711c2baa5d74f376b56a1920")
 # theta.cu against its plain version on this many of the build's rows
 FLAGSHIP_CHECK_ROWS = 1024
+# [configs]: the same on this many rows of each configuration's build
+CONFIG_CHECK_ROWS = 256
 
 # theta kernel against its plain version: (C, S_B, s) x RSENT fraction,
 # on ranks drawn from [0, 4 * S_B)
@@ -542,16 +560,17 @@ def print_ptxas(log):
             name = None
 
 
-def main_path_blocks(fa, p, device):
-    """The (cur, nxt) block rows that the main path's build hands to
-    theta_chunk for this FASTA: hashing, rank reduction and the block
-    cut of the index build, stopped before theta."""
+def main_path_blocks(p, device):
+    """The (cur, nxt) block rows that the build hands to theta_chunk for
+    p's reference files (one contig group): hashing, rank reduction and
+    the block cut of the index build, stopped before theta."""
     import torch
     from mashmap_tpu_torch.index import builder
     from mashmap_tpu_torch.io import for_each_seq_in_file
     from mashmap_tpu_torch.kernels import kmers, winnow
     hs = [builder._hash_contig(kmers.sanitize(seq.encode("ascii")),
                                p.kmer_size, device)[0]
+          for fa in p.ref_sequences
           for _, seq in for_each_seq_in_file(fa)]
     ranks, _ = winnow._rank_reduce(torch.cat(hs))
     views = list(torch.split(ranks, [h.shape[0] for h in hs]))
@@ -559,13 +578,13 @@ def main_path_blocks(fa, p, device):
     return cur, nxt
 
 
-def theta_record(fa, p, device, kernel_reps=20, plain_reps=3):
+def theta_record(p, device, kernel_reps=20, plain_reps=3):
     """The kernel against its plain version on the main path's own block
     rows, exactly; the times of both there, and the least time the card
     could take for them."""
     import torch
     from mashmap_tpu_torch.kernels import theta
-    cur, nxt = main_path_blocks(fa, p, device)
+    cur, nxt = main_path_blocks(p, device)
     C, s_b = cur.shape
     s = p.sketch_size
     out = {}
@@ -1526,7 +1545,7 @@ def flagship_phase(device):
         bad = {n: cov.get(n, 0.0) for n in lens if cov.get(n, 0.0) < 0.92}
         if bad:
             raise AssertionError(f"[flagship] coverage gate failed: {bad}")
-        flagship_theta(ref, pb, device)
+        flagship_theta(pb, device)
     finally:
         for path in (ref, asm, npz, out):
             if os.path.exists(path):
@@ -1534,13 +1553,13 @@ def flagship_phase(device):
     return launches
 
 
-def flagship_theta(ref, p, device):
+def flagship_theta(p, device):
     """theta.cu on the block rows of the flagship build (its one contig
     group): the kernel's median ms over them, and the kernel equal to
     its plain version on the first FLAGSHIP_CHECK_ROWS."""
     import torch
     from mashmap_tpu_torch.kernels import theta
-    cur, nxt = main_path_blocks(ref, p, device)
+    cur, nxt = main_path_blocks(p, device)
     C, s_b = cur.shape
     s = p.sketch_size
     step = theta.theta_rows_per_launch(device, s, s_b)
@@ -1577,10 +1596,130 @@ def start_cutoff_table(fa, pi):
     """Start cutoff_table_job in a child process (host SciPy only, no
     card), so that minutes of host time overlap the card's phases; the
     caller reads its output and stops it."""
+    return start_child(f"cutoff_table_job({fa!r}, {pi!r})")
+
+
+def start_child(call):
+    """Run chip_smoke.<call> in a child process with its stdout piped."""
     return subprocess.Popen(
-        [sys.executable, "-c", "import chip_smoke; chip_smoke."
-         f"cutoff_table_job({fa!r}, {pi!r})"],
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.{call}"],
         cwd=HERE, stdout=subprocess.PIPE, text=True)
+
+
+def configs_prep_job():
+    """Write bench_extra_torch's data at bench_extra.py's sizes, then
+    compute the cutoff tables of [configs]' one-to-one run and dense
+    sweep into $XDG_CACHE_HOME (the ONT and --rl runs share s = 130 with
+    the main path, which computes that table cold); print the seconds of
+    each step."""
+    import bench_extra_torch as bext
+    from mashmap_tpu_torch import stats
+    from mashmap_tpu_torch.params import FIXED
+    t0 = time.perf_counter()
+    data = bext.make_data(DATA, bext.FULL)
+    print(f"data {time.perf_counter() - t0}", flush=True)
+    for p in [bext.oto_params(data, os.devnull)] + [
+            bext.dense_params(data, os.devnull, s) for s in bext.SWEEP]:
+        p.finalize()
+        t0 = time.perf_counter()
+        stats.sketch_cutoffs(p.sketch_size, p.kmer_size, p.ANIDiff,
+                             p.ANIDiffConf, FIXED.ss_table_max)
+        print(f"s={p.sketch_size} {time.perf_counter() - t0}", flush=True)
+
+
+def configs_phase(device, prep_job):
+    """[configs]: bench_extra_torch's configurations (BASELINE.json's
+    one-to-one, ONT reads, --dense/-J sweep and --rl) on the card at
+    bench_extra.py's sizes, each held by bench_extra_torch.check (its
+    PAF's sha256 the JAX package's, EXTRA_SHA256; the coverage gate; the
+    sweep's ANI error), theta.cu's launches counted from 0 for each; then
+    theta.cu on each configuration's build rows timed and equal to its
+    plain version on the first CONFIG_CHECK_ROWS. Returns the launches
+    by configuration and config_theta's records."""
+    import bench_extra_torch as bext
+    from mashmap_tpu_torch.kernels import theta
+    t0 = time.perf_counter()
+    job_out, _ = prep_job.communicate()
+    if prep_job.returncode != 0:
+        raise RuntimeError(f"[configs] the data and cutoff table job "
+                           f"exited {prep_job.returncode}")
+    print(f"[configs] data and cutoff tables (a child process since "
+          f"phase 3), seconds: {job_out.split(chr(10))[:-1]}")
+    data = bext.make_data(DATA, bext.FULL)
+    steps = [(bext.one_to_one, ()), (bext.ont_reads, ())] + [
+        (bext.dense_step, (s,)) for s in bext.SWEEP] + [
+        (bext.multiref_rl, ())]
+    by_path, params_by_key = {}, {}
+    for fn, args in steps:
+        peak_bytes(device)
+        theta.LAUNCHES = theta.WIDE_LAUNCHES = 0
+        mappers = []
+        with grab_mappers(mappers):
+            r = fn(data, device, *args)
+        by_path[r.key] = theta.LAUNCHES
+        params_by_key[r.key] = mappers[0].p
+        print(f"[configs] {r.key} s={r.sketch_size}: map_files "
+              f"{r.seconds} s (build {r.build_s} s) paf_rows={r.rows} "
+              f"path_stats={mappers[0].path_stats} theta launches: "
+              f"theta.cu {theta.LAUNCHES}, theta_wide.cu "
+              f"{theta.WIDE_LAUNCHES}; max_memory_allocated "
+              f"{peak_bytes(device)}")
+        if r.key == "oto":
+            print(f"[configs] oto coverage min="
+                  f"{bext.coverage_min(data, r)[0]}")
+        elif r.key == "ont":
+            print(f"[configs] ont reads mapped "
+                  f"{bext.mapped_fraction(data, r)}")
+        elif r.key.startswith("dense"):
+            print(f"[configs] {r.key} |ANI error| {bext.ani_error(r)} pp")
+        bad = bext.check(data, r)
+        if bad:
+            raise AssertionError(f"[configs] {bad}")
+        if theta.LAUNCHES <= 0 or theta.WIDE_LAUNCHES != 0:
+            raise AssertionError(f"[configs] {r.key} launched theta.cu "
+                                 f"{theta.LAUNCHES} times and theta_wide.cu "
+                                 f"{theta.WIDE_LAUNCHES}")
+    print(f"[configs] every PAF sha256 == EXTRA_SHA256 (the JAX "
+          f"package's): {sorted(by_path)}")
+    recs = [config_theta(key, p, device) for key, p in params_by_key.items()]
+    print(f"[configs] {time.perf_counter() - t0} s")
+    return by_path, recs
+
+
+def config_theta(key, p, device):
+    """theta.cu on the block rows of a [configs] build: the kernel's
+    median ms over all of them and the bound for them; the kernel and its
+    plain version timed on the first CONFIG_CHECK_ROWS, and equal there.
+    Returns the record."""
+    import torch
+    from mashmap_tpu_torch.kernels import theta
+    cur, nxt = main_path_blocks(p, device)
+    C, s_b = cur.shape
+    s = p.sketch_size
+    ms = time_ms(lambda: theta.theta_chunk(cur, nxt, s, s_b), 5)
+    counts = theta_schedule_counts(cur.cpu().numpy(), nxt.cpu().numpy(), s,
+                                   theta.SEG_K)
+    bound_ms, bound_by = theta_bound_ms(C, s_b, s, counts)
+    c, n = (x[:CONFIG_CHECK_ROWS].contiguous() for x in (cur, nxt))
+    out = {}
+    check_ms = time_ms(
+        lambda: out.update(got=theta.theta_chunk(c, n, s, s_b)), 5)
+    plain_ms = time_ms(
+        lambda: out.update(want=theta.theta_chunk_ref(c, n, s, s_b)), 1,
+        warmup=0)
+    err = max_abs_err(out["got"], out["want"])
+    print(f"[configs] {key} theta.cu on the build's rows C={C} S_B={s_b} "
+          f"s={s}: {ms} ms (bound {bound_ms} ms, {bound_by}); on the first "
+          f"{len(c)}: {check_ms} ms, plain {plain_ms} ms, max_abs_err={err}")
+    if err != 0:
+        raise AssertionError(f"[configs] {key} theta.cu disagrees with its "
+                             f"plain version")
+    del cur, nxt
+    torch.cuda.empty_cache()
+    return {"path": key, "C": C, "S_B": s_b, "s": s, "ms": ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "check_rows": len(c), "check_ms": check_ms,
+            "check_plain_ms": plain_ms, "max_abs_err": err}
 
 
 def build_all():
@@ -1644,25 +1783,26 @@ def run():
 
     fa_main = fasta(N_HAP, HAP_LEN, DIVERGENCE, SEED)
     fa_small = fasta(*SMALL)
-    table_job = start_cutoff_table(fa_main, PI_WIDE)
+    jobs = [start_cutoff_table(fa_main, PI_WIDE), start_child(
+        "configs_prep_job()")]
     try:
-        return phases(device, fa_main, fa_small, table_job, t_start)
+        return phases(device, fa_main, fa_small, *jobs, t_start)
     finally:
-        if table_job.poll() is None:
-            table_job.kill()
-        table_job.wait()
+        for job in jobs:
+            if job.poll() is None:
+                job.kill()
+            job.wait()
 
 
-def phases(device, fa_main, fa_small, table_job, t_start):
-    """Phases 3 to 12 and the last two lines."""
+def phases(device, fa_main, fa_small, table_job, prep_job, t_start):
+    """Phases 3 to 13 and the last two lines."""
     import torch
     from mashmap_tpu_torch.io import for_each_seq_in_file
     # 3. theta against its plain version, then times on the main path's
     # rows, at s = 130 (theta.cu) and at --pi 78, s = 680 (theta_wide.cu)
     err = check_theta(device)
-    rec = theta_record(fa_main, params(fa_main, os.devnull), device)
-    wide_rec = theta_record(fa_main, params(fa_main, os.devnull, PI_WIDE),
-                            device)
+    rec = theta_record(params(fa_main, os.devnull), device)
+    wide_rec = theta_record(params(fa_main, os.devnull, PI_WIDE), device)
 
     # 4. the banded DP against its plain version, then times per bucket
     dp_err = check_dp(device)
@@ -1708,11 +1848,15 @@ def phases(device, fa_main, fa_small, table_job, t_start):
     # 12. the human-scale path at 62 Mbp, held to the JAX package's PAF
     by_path["flagship"] = flagship_phase(device)
 
+    # 13. bench_extra_torch's configurations, held to the JAX package's PAFs
+    config_by_path, config_recs = configs_phase(device, prep_job)
+    by_path.update(config_by_path)
+
     rec = {"name": rec.pop("name"), "route": rec.pop("route"),
            "source": rec.pop("source"), "replaces": rec.pop("replaces"),
            "launches": launches,
            "max_abs_err": max(err, rec.pop("max_abs_err")), **rec,
-           "launches_by_path": by_path}
+           "launches_by_path": by_path, "configs": config_recs}
     wide_rec = {"name": wide_rec.pop("name"), "route": wide_rec.pop("route"),
                 "source": wide_rec.pop("source"),
                 "replaces": wide_rec.pop("replaces"),

@@ -62,7 +62,8 @@ def test_port_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize("script", ["scripts/flagship_torch.py",
-                                    "chip_smoke.py"])
+                                    "chip_smoke.py", "bench_torch.py",
+                                    "bench_extra_torch.py"])
 def test_port_scripts_import_neither(script):
     """The port's scripts that run on the card import neither JAX nor the
     JAX package, by their source and when imported with both blocked."""
