@@ -42,9 +42,14 @@ Phases, in order; any failure propagates and exits non-zero:
    then four warm runs with the same PAF, alternately reading through
    the native reader and the Python parser, and the two readers' time
    on the FASTA alone; then one run under torch.profiler (device busy
-   time and the top kernels of the build and the map);
+   time and the top kernels of the build and the map; the map's batches,
+   its CUDA runtime calls that block the host (no cudaStreamSynchronize)
+   and its host seconds by map phase, Mapper.phase_s);
 6. card against CPU: on a small pangenome the card's index arrays and PAF
-   bytes equal the port's own CPU run;
+   bytes equal the port's own CPU run; [pipeline] (a): the same pangenome
+   mapped on the card at PIPELINE_BATCH fragments a batch (15 batches
+   through Mapper._run_pipelined, queries spanning them), its PAF the
+   CPU's, under torch.profiler with no cudaStreamSynchronize;
 7. [cli]: `python -m mashmap_tpu_torch.cli` in a subprocess with
    bench.py's flags gives the main path's PAF byte for byte; once more
    with --legacy for the aligner;
@@ -97,8 +102,12 @@ Phases, in order; any failure propagates and exits non-zero:
    assembly contig must pass the coverage gate; build s, map s, query
    Mbp/s, PAF rows, path_stats and peak device memory; then theta.cu on
    the build's block rows (one contig group) timed, and equal to its
-   plain version on the first FLAGSHIP_CHECK_ROWS of them. The pair and
-   the npz are removed at the end;
+   plain version on the first FLAGSHIP_CHECK_ROWS of them; [pipeline]
+   (b): the reference built again at rank limit PIPELINE_RANK_LIMIT (5
+   contig groups, each group's host part on build_index's worker thread
+   while the next group's device phases run), every index array equal to
+   the one-group build's, each group's main-thread and worker seconds and
+   the build's wall. The pair and the npz are removed at the end;
 13. [configs]: BASELINE.json's other mapping configurations through
    bench_extra_torch.py's functions on "cuda", at bench_extra.py's sizes
    (its data and its cutoff tables at s = 20, 60, 120, 200 and 298 made
@@ -185,6 +194,15 @@ FLAGSHIP_S002_SHA256 = ("d7956da3ea56ac49541adf7ca1c1c723"
                         "15219053711c2baa5d74f376b56a1920")
 # theta.cu against its plain version on this many of the build's rows
 FLAGSHIP_CHECK_ROWS = 1024
+# [pipeline]: the small pangenome (120 fragments) mapped this many
+# fragments a batch (15 batches, queries spanning them), and the
+# [flagship] reference (62.47 M positions) built with this rank limit
+# (5 contig groups)
+PIPELINE_BATCH = 8
+PIPELINE_RANK_LIMIT = 14_000_000
+# CUDA runtime calls that block the host
+BLOCKING = ("cudaStreamSynchronize", "cudaEventSynchronize",
+            "cudaDeviceSynchronize")
 # [configs]: the same on this many rows of each configuration's build
 CONFIG_CHECK_ROWS = 256
 
@@ -751,16 +769,55 @@ def profile_main_path(fa, device, top=12):
     from mashmap_tpu_torch.api import build_or_load_index, map_files
     p = params(fa, os.path.join(DATA, "smoke_profile.paf"))
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    mappers, batches = [], [0]
     for phase in ("build", "map"):
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             if phase == "build":
                 idx = build_or_load_index(p, device)
             else:
-                map_files(p, index=idx, device=device)
+                with grab_mappers(mappers), count_batches(batches):
+                    map_files(p, index=idx, device=device)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
         print_profile("[profile]", phase, prof, wall_ms, top, "theta_")
+    calls = runtime_calls(prof)
+    print(f"[profile] map: {batches[0]} batches; CUDA runtime calls "
+          f"{calls}")
+    print(f"[profile] map: host s by map phase "
+          f"{dict(sorted(mappers[0].phase_s.items()))}")
+    # every copy of the pipelined map waits on its own event
+    # (hostcopy.py), never on the whole stream
+    if calls["cudaLaunchKernel"] == 0:
+        raise AssertionError("[profile] map: no CUDA runtime call traced")
+    if calls["cudaStreamSynchronize"]:
+        raise AssertionError(f"[profile] map: "
+                             f"{calls['cudaStreamSynchronize']} stream "
+                             f"synchronizations for {batches[0]} batches")
+
+
+def runtime_calls(prof):
+    """Counts, in a torch.profiler window, of the CUDA runtime calls that
+    block the host and of the kernel launches (the check that runtime
+    calls were traced at all)."""
+    counts = {e.key: e.count for e in prof.key_averages()}
+    return {k: counts.get(k, 0) for k in ("cudaLaunchKernel",) + BLOCKING}
+
+
+@contextlib.contextmanager
+def count_batches(n):
+    """Mapper._dispatch_batch adds one to n[0] for each batch."""
+    from mashmap_tpu_torch.map import engine
+    real = engine.Mapper._dispatch_batch
+
+    def spy(self, frags):
+        n[0] += 1
+        return real(self, frags)
+    engine.Mapper._dispatch_batch = spy
+    try:
+        yield
+    finally:
+        engine.Mapper._dispatch_batch = real
 
 
 def print_profile(tag, phase, prof, wall_ms, top, mark):
@@ -782,6 +839,116 @@ def print_profile(tag, phase, prof, wall_ms, top, mark):
             print(f"{tag} {phase}: {mark} {ms} ms x{n} {key[:40]}")
 
 
+def small_paf(pi, dev_type):
+    """Where card_vs_cpu writes the small pangenome's PAF."""
+    return os.path.join(DATA, f"smoke_small_{pi}_{dev_type}.paf")
+
+
+def pipeline_phase(fa, device):
+    """[pipeline] (a): the small pangenome built and mapped on the card
+    at PIPELINE_BATCH fragments a batch, so that many batches pass two at
+    a time and queries span them; the map under torch.profiler. Gates:
+    the PAF == the port's CPU PAF that card_vs_cpu wrote (the PAF does
+    not depend on the batch size), more than 9 batches, the runtime
+    calls traced, no cudaStreamSynchronize in the map (the profiler's
+    own synchronize at the window's end is a cudaDeviceSynchronize), and
+    theta launched. Returns theta.cu's launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mashmap_tpu_torch.api import build_or_load_index, map_files
+    from mashmap_tpu_torch.kernels import theta
+    out = os.path.join(DATA, "smoke_pipeline.paf")
+    p = params(fa, out)
+    p.batch_fragments = PIPELINE_BATCH
+    theta.LAUNCHES = theta.WIDE_LAUNCHES = 0
+    idx = build_or_load_index(p, device)
+    mappers, batches = [], [0]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with grab_mappers(mappers), count_batches(batches):
+            map_files(p, index=idx, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = theta.LAUNCHES
+    calls = runtime_calls(prof)
+    m = mappers[0]
+    print(f"[pipeline] (a) batch_fragments={p.batch_fragments}: "
+          f"{batches[0]} batches, map {wall} s (profiled), theta.cu "
+          f"launches {launches}, path_stats {m.path_stats}")
+    print(f"[pipeline] (a) CUDA runtime calls {calls}")
+    print(f"[pipeline] (a) host s by map phase "
+          f"{dict(sorted(m.phase_s.items()))}")
+    with open(out, "rb") as fh:
+        got = fh.read()
+    with open(small_paf(PI, "cpu"), "rb") as fh:
+        want = fh.read()
+    if got != want:
+        raise AssertionError("[pipeline] (a) PAF differs from the CPU's")
+    if batches[0] < 10:
+        raise AssertionError(f"[pipeline] (a) {batches[0]} batches")
+    if calls["cudaLaunchKernel"] == 0:
+        raise AssertionError("[pipeline] (a) no CUDA runtime call traced")
+    syncs = calls["cudaStreamSynchronize"]
+    if syncs:
+        raise AssertionError(f"[pipeline] (a) {syncs} stream "
+                             f"synchronizations for {batches[0]} batches")
+    if launches <= 0:
+        raise AssertionError("[pipeline] (a) launched no theta kernel")
+    rows = got.count(b"\n")
+    print(f"[pipeline] (a) PAF == the CPU's, {rows} rows; {syncs} stream "
+          f"synchronizations for {batches[0]} batches")
+    return launches
+
+
+def pipeline_groups(pb, idx, device):
+    """[pipeline] (b): the [flagship] reference built again through
+    build_index at rank limit PIPELINE_RANK_LIMIT, so that several contig
+    groups pass with each group's host part on the build's worker thread
+    while the next group's device phases run. Gates: at least 4 groups,
+    every index array == idx's (the default one-group build), theta
+    launched. Prints the main thread's and the worker's seconds per
+    group (index/builder.py's GROUP_PHASE_S) and the build's wall against
+    their sum. Returns theta.cu's launches."""
+    import numpy as np
+    import torch
+    from mashmap_tpu_torch.index.builder import _NPZ_FIELDS, build_index
+    from mashmap_tpu_torch.io import for_each_seq_in_file
+    from mashmap_tpu_torch.kernels import theta
+    from flagship_torch import group_seconds
+    theta.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = build_index(
+        (rec for fa in pb.ref_sequences for rec in for_each_seq_in_file(fa)),
+        pb.kmer_size, pb.seg_length, pb.sketch_size, pb.kmer_pct_threshold,
+        threads=pb.threads, device=device, rank_limit=PIPELINE_RANK_LIMIT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per = group_seconds()
+    launches = theta.LAUNCHES
+    for gid, (m_s, w_s) in per.items():
+        print(f"[pipeline] (b) group from contig {gid}: main thread "
+              f"{m_s} s, worker {w_s} s")
+    total = sum(m_s + w_s for m_s, w_s in per.values())
+    print(f"[pipeline] (b) rank_limit={PIPELINE_RANK_LIMIT}: {len(per)} "
+          f"groups, build wall {wall} s against main + worker {total} s "
+          f"(main {sum(v[0] for v in per.values())} s); theta.cu "
+          f"launches {launches}")
+    if len(per) < 4 or not all(w_s > 0 for _, w_s in per.values()):
+        raise AssertionError(f"[pipeline] (b) groups {per}")
+    for f in _NPZ_FIELDS:
+        if not np.array_equal(getattr(got, f), getattr(idx, f)):
+            raise AssertionError(f"[pipeline] (b) index array {f} differs "
+                                 f"from the one-group build's")
+    if (got.names, got.freq_threshold) != (idx.names, idx.freq_threshold):
+        raise AssertionError("[pipeline] (b) index metadata differs")
+    if launches <= 0:
+        raise AssertionError("[pipeline] (b) launched no theta kernel")
+    print(f"[pipeline] (b) {len(_NPZ_FIELDS)} index arrays == the "
+          f"one-group build's")
+    return launches
+
+
 def card_vs_cpu(fa, device, pi=PI, tag="[small]", card_kw=None):
     """The index arrays and PAF bytes of `device` equal the CPU's at
     --pi `pi` (the card's run with Parameters card_kw); returns the card
@@ -794,7 +961,7 @@ def card_vs_cpu(fa, device, pi=PI, tag="[small]", card_kw=None):
     cpu = torch.device("cpu")
     runs = {}
     for dev in (device, cpu):
-        out = os.path.join(DATA, f"smoke_small_{pi}_{dev.type}.paf")
+        out = small_paf(pi, dev.type)
         kw = (card_kw or {}) if dev == device else {}
         p = params(fa, out, pi, **kw)
         theta.LAUNCHES = theta.WIDE_LAUNCHES = 0
@@ -1546,11 +1713,12 @@ def flagship_phase(device):
         if bad:
             raise AssertionError(f"[flagship] coverage gate failed: {bad}")
         flagship_theta(pb, device)
+        groups_launches = pipeline_groups(pb, idx, device)
     finally:
         for path in (ref, asm, npz, out):
             if os.path.exists(path):
                 os.remove(path)
-    return launches
+    return launches, groups_launches
 
 
 def flagship_theta(p, device):
@@ -1765,6 +1933,7 @@ def run():
         return 1
     sys.path.insert(0, HERE)
     sys.path.insert(0, os.path.join(HERE, "tests"))
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
     device = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -1812,8 +1981,9 @@ def phases(device, fa_main, fa_small, table_job, prep_job, t_start):
     launches, paf = main_path(fa_main, device)
     profile_main_path(fa_main, device)
 
-    # 6. card against CPU
+    # 6. card against CPU, then the pipelined map at many batches
     card_vs_cpu(fa_small, device)
+    pipeline_launches = pipeline_phase(fa_small, device)
 
     # 7. the mapper's CLI
     legacy = cli_phase(fa_main, paf)
@@ -1825,7 +1995,7 @@ def phases(device, fa_main, fa_small, table_job, prep_job, t_start):
     align_small(fa_small, device)
 
     # 9. the parallel layer: two shards, two blocks, two processes
-    by_path = {"main": launches}
+    by_path = {"main": launches, "pipeline": pipeline_launches}
     by_path["shard"] = two_entry_phase("[shard]", fa_main, device, paf,
                                        shard=True)
     by_path["mesh"] = two_entry_phase("[mesh]", fa_main, device, paf,
@@ -1846,7 +2016,7 @@ def phases(device, fa_main, fa_small, table_job, prep_job, t_start):
         dict(l1_postings_cap=WIDE_P_CAP))[1]
 
     # 12. the human-scale path at 62 Mbp, held to the JAX package's PAF
-    by_path["flagship"] = flagship_phase(device)
+    by_path["flagship"], by_path["pipeline-groups"] = flagship_phase(device)
 
     # 13. bench_extra_torch's configurations, held to the JAX package's PAFs
     config_by_path, config_recs = configs_phase(device, prep_job)

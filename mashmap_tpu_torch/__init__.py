@@ -13,3 +13,18 @@ caller passes ``device="cpu"``.
 __version__ = "0.1.0"
 
 from .params import Parameters, FIXED  # noqa: E402,F401
+
+
+def map_files(params, index=None, device=None, devices=None):
+    """Library entry point: build/load the index and map the queries.
+
+    See api.map_files; imported lazily so `import mashmap_tpu_torch`
+    stays cheap."""
+    from .api import map_files as _mf
+    return _mf(params, index, device=device, devices=devices)
+
+
+def build_or_load_index(params, device=None):
+    """See api.build_or_load_index (imported lazily)."""
+    from .api import build_or_load_index as _b
+    return _b(params, device)

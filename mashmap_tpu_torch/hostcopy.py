@@ -1,0 +1,49 @@
+"""Copies between the host and a CUDA device that do not stall its stream.
+
+Counterpart of the JAX package's ``_start_host_copy``
+(mashmap_tpu/map/engine.py, mashmap_tpu/index/builder.py). A blocking
+``.cpu()``, or a ``.to("cuda")`` of pageable numpy memory, ends in
+``cudaStreamSynchronize``: the host waits for everything already queued
+on the stream, the next batch's work included. Here a device-to-host
+copy goes into pinned host memory right behind the op that produced its
+source, an event is recorded after it, and the host later waits on that
+event alone; a host-to-device copy is staged in pinned memory and queued
+with no wait. Pinned blocks come from PyTorch's caching host allocator,
+which reuses a block only after the copies queued on it are done.
+
+On a CPU device the same calls hand back the tensors themselves.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class HostCopy:
+    """A device-to-host copy of one tensor, started when it is made;
+    ``wait()`` returns the tensor as a numpy array."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type == "cuda":
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(t.device))
+            t = host
+        self._host = t
+
+    def wait(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``a`` on ``device``, its host-to-device copy queued on the
+    device's current stream without a wait."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

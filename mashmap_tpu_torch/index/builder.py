@@ -14,7 +14,8 @@ pointer-based structures become sorted arrays:
 Per contig group the device runs hashing -> rank reduction -> theta
 (kernels/winnow.py, the hand-written theta kernel) -> membership events
 (kernels/events.py); one device->host copy brings the sparse events to
-the host, which pairs them, classifies strands and assembles the CSR.
+the host, which pairs them and classifies strands on a worker thread
+while the next group's device phases run, then assembles the CSR.
 
 Known reference bugs deliberately not replicated (as in the JAX build):
 - addMinmers' heap refill can insert an expired k-mer after a partial
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -47,6 +49,13 @@ _EVENTS_CH_MAX = 1 << 24
 # default k-mer positions per contig group (each group has its own
 # int32 rank domain; ranks must stay below 2^30 for the event packing)
 DEFAULT_RANK_LIMIT = 256 * 1024 * 1024
+
+# host seconds of each phase of the last build_index call, by the first
+# contig of each group and the phase's label (_group_clock); the labels
+# of WORKER_PHASES run on the build's worker thread, the rest on the
+# calling thread
+GROUP_PHASE_S: dict[int, dict[str, float]] = {}
+WORKER_PHASES = ("host-classify", "resolve-u64")
 
 FWD = np.int8(1)
 REV = np.int8(-1)
@@ -534,6 +543,7 @@ def build_index(
     ``device`` defaults to CUDA (see utils.resolve_device).
     """
     device = resolve_device(device)
+    GROUP_PHASE_S.clear()
     if not 0 < rank_limit <= 1 << 30:
         raise ValueError(
             f"rank_limit={rank_limit} out of range (must be in (0, 2^30]: "
@@ -546,9 +556,8 @@ def build_index(
     acc_mgid: List[int] = []     # owning group of each acc_mh slot array
     group_vals: List[np.ndarray] = []   # per-group sorted surviving u64s
 
-    def run_group(group, build=_build_group):
-        results, vals = build(group, kmer_size, window_size, sketch_size,
-                              threads, device)
+    def consume(resolved):
+        results, vals = resolved
         gid = len(group_vals)
         group_vals.append(vals)
         for seq_id, (ph, pb, pe), (mh, mb, me, ms) in results:
@@ -563,31 +572,60 @@ def build_index(
             acc_ms.append(ms)
             acc_mseq.append(np.full(len(mh), seq_id, np.int32))
 
-    group: List[Tuple[int, str]] = []
-    group_pos = 0
-    for seq_id, (name, seq) in enumerate(contigs):
-        names.append(name)
-        lengths.append(len(seq))
-        if len(seq) < window_size:
-            # never forms a full window => not indexed (commonFunc.hpp:455)
-            continue
-        n = len(seq) - kmer_size + 1
-        if n > rank_limit:
-            # over the limit: a group of its own on the host route
-            if group:
-                run_group(group)
+    # Depth-2 group pipeline: group N's host pairing, classification and
+    # resolution run on a worker thread while group N+1's device phases
+    # (hash, rank, theta, events, their copy) run on this one; numpy's
+    # sorts release the interpreter lock. The reference overlaps the
+    # same way with its per-contig thread pool (winSketch.hpp:165). The
+    # worker touches no device: each group's LUT values come to the host
+    # before the handoff, so no device memory outlives its group.
+    # Results are consumed strictly in group order; a worker's exception
+    # re-raises here through its future.
+    from concurrent.futures import ThreadPoolExecutor
+    pending = None
+
+    def flush_pending():
+        nonlocal pending
+        if pending is not None:
+            fut, pending = pending, None
+            consume(fut.result())
+
+    def run_group(ex, group, build=_build_group):
+        nonlocal pending
+        host = build(group, kmer_size, window_size, sketch_size, threads,
+                     device)
+        flush_pending()
+        pending = ex.submit(host)
+
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        group: List[Tuple[int, str]] = []
+        group_pos = 0
+        for seq_id, (name, seq) in enumerate(contigs):
+            names.append(name)
+            lengths.append(len(seq))
+            if len(seq) < window_size:
+                # never forms a full window => not indexed
+                # (commonFunc.hpp:455)
+                continue
+            n = len(seq) - kmer_size + 1
+            if n > rank_limit:
+                # over the limit: a group of its own on the host route
+                if group:
+                    run_group(ex, group)
+                    group, group_pos = [], 0
+                logger.info("contig %r has %d positions, over the device "
+                            "rank limit %d: host route", name, n,
+                            rank_limit)
+                run_group(ex, [(seq_id, seq)], _build_group_host)
+                continue
+            if group and group_pos + n > rank_limit:
+                run_group(ex, group)
                 group, group_pos = [], 0
-            logger.info("contig %r has %d positions, over the device rank "
-                        "limit %d: host route", name, n, rank_limit)
-            run_group([(seq_id, seq)], _build_group_host)
-            continue
-        if group and group_pos + n > rank_limit:
-            run_group(group)
-            group, group_pos = [], 0
-        group.append((seq_id, seq))
-        group_pos += n
-    if group:
-        run_group(group)
+            group.append((seq_id, seq))
+            group_pos += n
+        if group:
+            run_group(ex, group)
+        flush_pending()
 
     if not names:
         raise ValueError("No sequences indexed!")
@@ -666,14 +704,17 @@ def build_index(
     )
 
 
-def _resolve_group_hashes(results, lut):
+def _resolve_group_hashes(results, uniq_host, lut_pair=None):
     """Map one group's rank-domain outputs out of the group-local domain.
 
-    Gathers the group LUT — a device tensor of int64 bits (device
-    route) or a host u64 array (host route) — only at the DISTINCT ranks
-    that survived into postings / minmer rows. Returns ``(rows, vals)``:
-    postings hashes are resolved to u64, interval-row hashes stay as
-    SLOTS into ``vals`` (the group's sorted surviving u64 values).
+    Looks up the group's u64 values only at the DISTINCT ranks that
+    survived into postings / minmer rows: in ``lut_pair`` = (sorted
+    ranks, their u64 values), the device route's LUT brought to the
+    host at the group's distinct begin ranks (a superset), or else in
+    the host route's ``uniq_host`` (u64 by rank). Returns ``(rows,
+    vals)``: postings hashes are resolved to u64, interval-row hashes
+    stay as SLOTS into ``vals`` (the group's sorted surviving u64
+    values).
     """
     u64e = np.empty(0, np.uint64)
     i32e = np.empty(0, np.int32)
@@ -686,11 +727,17 @@ def _resolve_group_hashes(results, lut):
     seen[flat] = True
     uniq_r = np.flatnonzero(seen)
     slot = np.cumsum(seen, dtype=np.int32) - 1
-    if isinstance(lut, np.ndarray):
-        vals = lut[uniq_r]
+    if lut_pair is not None:
+        pr, pv = lut_pair
+        invp = np.full(int(pr[-1]) + 1 if len(pr) else 0, -1, np.int32)
+        invp[pr] = np.arange(len(pr), dtype=np.int32)
+        pos = invp[uniq_r]
+        if not (pos >= 0).all():
+            raise AssertionError(
+                "surviving ranks must be a subset of the prefetched LUT")
+        vals = pv[pos]
     else:
-        idx = torch.from_numpy(uniq_r).to(lut.device)
-        vals = lut[idx].cpu().numpy().view(np.uint64)
+        vals = uniq_host[uniq_r]
     out = []
     for seq_id, (ph, pb, pe), (mh, mb, me, ms) in results:
         ph_u = vals[slot[ph]] if len(ph) else u64e
@@ -761,12 +808,17 @@ def _build_group(group: List[Tuple[int, str]], kmer_size: int,
                  window_size: int, sketch_size: int, threads: int, device):
     """Index-build pipeline for one contig group.
 
-    Device: hashing -> LOCAL rank reduction -> theta -> membership
-    events. Host (after one device->host copy of the sparse events):
-    pairing, strand classification, rank -> u64 resolution. Returns
-    (per-contig rows in ascending seq_id, the group's u64 values).
+    Device, here: hashing -> LOCAL rank reduction -> theta -> membership
+    events, then one device->host copy of the sparse events and the
+    group LUT's u64 values at their distinct begin ranks (``lut_pair``).
+    Host, in the returned closure: pairing, strand classification,
+    rank -> u64 resolution. The closure touches no device (build_index
+    runs it on its worker thread while the next group's device phases
+    run) and returns (per-contig rows in ascending seq_id, the group's
+    u64 values).
     """
     span = window_size - kmer_size + 1
+    mark = _group_clock(group)
     hm, st, spans = [], [], []
     off = 0
     for seq_id, seq in group:
@@ -776,11 +828,13 @@ def _build_group(group: List[Tuple[int, str]], kmer_size: int,
         st.append(s_)
         spans.append((seq_id, off, h.shape[0]))
         off += h.shape[0]
+    mark("hash-dispatch")
     ranks, lut = winnow._rank_reduce(torch.cat(hm))
     st = torch.cat(st)
     del hm
     rank_views = [ranks[a:a + n] for _, a, n in spans]
     thetas = winnow.theta_scan_ranks(rank_views, sketch_size, span)
+    mark("rank+theta")
 
     calls = []                     # (contig index, args, caps)
     for i, (seq_id, a, n) in enumerate(spans):
@@ -818,6 +872,22 @@ def _build_group(group: List[Tuple[int, str]], kmer_size: int,
             got = events_mod.unpack_events(
                 run(i, args, caps).cpu().numpy(), *caps)
         lanes_by_contig.setdefault(i, []).append(got)
+    mark("events+fetch")
+
+    # the LUT's u64 values at every DISTINCT begin rank: every rank that
+    # survives into postings or interval rows is a begin's
+    # (_pair_begin_end keeps begin hashes, strand_classify subsets them)
+    bh = [got[0] for chunks in lanes_by_contig.values() for got in chunks]
+    flat_ev = np.concatenate(bh) if bh else np.empty(0, np.int32)
+    if len(flat_ev):
+        seen_ev = np.zeros(int(flat_ev.max()) + 1, bool)
+        seen_ev[flat_ev] = True
+        uniq_ev = np.flatnonzero(seen_ev)
+        ix = torch.from_numpy(uniq_ev).to(lut.device)
+        lut_pair = (uniq_ev, lut[ix].cpu().numpy().view(np.uint64))
+    else:
+        lut_pair = (np.empty(0, np.int64), np.empty(0, np.uint64))
+    mark("lut-prefetch")
 
     def one_contig(i):
         seq_id, _, n = spans[i]
@@ -832,7 +902,20 @@ def _build_group(group: List[Tuple[int, str]], kmer_size: int,
         mh, mb, me, ms = _chunk_long_intervals(mh, mb, me, ms, window_size)
         return seq_id, (iv_rank, iv_wb, iv_we), _sort_rows(mh, mb, me, ms)
 
-    order = sorted(lanes_by_contig)
+    def classify_and_resolve():
+        return _classify_and_resolve(
+            group, one_contig, sorted(lanes_by_contig), threads, None,
+            lut_pair)
+
+    return classify_and_resolve
+
+
+def _classify_and_resolve(group, one_contig, order, threads, uniq_host,
+                          lut_pair):
+    """The host part of a group's build: ``one_contig`` over the
+    contigs ``order`` (on ``threads`` threads), then the u64
+    resolution; the group's phase times are logged."""
+    mark = _group_clock(group)
     if threads > 1 and len(order) > 1:
         from concurrent.futures import ThreadPoolExecutor
         with ThreadPoolExecutor(max_workers=threads) as ex:
@@ -840,7 +923,26 @@ def _build_group(group: List[Tuple[int, str]], kmer_size: int,
     else:
         results = [one_contig(i) for i in order]
     results.sort(key=lambda t: t[0])
-    return _resolve_group_hashes(results, lut)
+    mark("host-classify")
+    out = _resolve_group_hashes(results, uniq_host, lut_pair)
+    mark("resolve-u64")
+    return out
+
+
+def _group_clock(group):
+    """mark(label): the host seconds since the previous mark (or since
+    this call), as a phase of the group that starts at contig
+    ``group[0]``, go into ``GROUP_PHASE_S`` and a DEBUG line."""
+    t = [time.perf_counter()]
+    gid = group[0][0]
+    phases = GROUP_PHASE_S.setdefault(gid, {})
+
+    def mark(label):
+        now = time.perf_counter()
+        phases[label] = now - t[0]
+        logger.debug("group %d phase %-14s %.4fs", gid, label, now - t[0])
+        t[0] = now
+    return mark
 
 
 def _build_group_host(group: List[Tuple[int, str]], kmer_size: int,
@@ -855,9 +957,11 @@ def _build_group_host(group: List[Tuple[int, str]], kmer_size: int,
     rank reduction (``winnow.rank_reduce_host``) and the membership
     events (``contig_minmer_intervals``) in place of the events kernel,
     whose packing needs ranks below 2^30. Returns what ``_build_group``
-    returns. ``threads`` is unused: the group holds one contig.
+    returns: a closure that runs the membership events and what follows
+    them. ``threads`` is unused: the group holds one contig.
     """
     span = window_size - kmer_size + 1
+    mark = _group_clock(group)
     contig_hv, strands = [], []
     for _, seq in group:
         seq_u8 = kmers.sanitize(seq.encode("ascii"))
@@ -868,12 +972,14 @@ def _build_group_host(group: List[Tuple[int, str]], kmer_size: int,
         h = np.concatenate(hs)
         contig_hv.append((h, h != winnow.SENTINEL))
         strands.append(np.concatenate(ss))
+    mark("hash-dispatch")
     rank_list, uniq = winnow.rank_reduce_host(contig_hv)
     del contig_hv
     thetas = winnow.theta_scan_ranks(
         [torch.from_numpy(r).to(device) for r in rank_list], sketch_size,
         span)
     thetas = [None if t is None else t.cpu().numpy() for t in thetas]
+    mark("rank+theta")
 
     def one_contig(i):
         r, theta = rank_list[i], thetas[i]
@@ -883,5 +989,10 @@ def _build_group_host(group: List[Tuple[int, str]], kmer_size: int,
         mh, mb, me, ms = _chunk_long_intervals(mh, mb, me, ms, window_size)
         return group[i][0], (ph, pb, pe), _sort_rows(mh, mb, me, ms)
 
-    results = [one_contig(i) for i, t in enumerate(thetas) if t is not None]
-    return _resolve_group_hashes(results, uniq)
+    def classify_and_resolve():
+        return _classify_and_resolve(
+            group, one_contig,
+            [i for i, t in enumerate(thetas) if t is not None], 1, uniq,
+            None)
+
+    return classify_and_resolve

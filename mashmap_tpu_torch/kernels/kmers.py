@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..hostcopy import to_device
 from .murmur import flip, hash_kmer_windows
 
 # strand labels (reference: base_types.hpp:103-108)
@@ -81,7 +82,7 @@ def canonical_kmer_hashes(seq_u8: torch.Tensor, k: int):
     n = L - k + 1
     fwd = hash_kmer_windows(seq_u8, k)
 
-    comp = torch.from_numpy(_COMPLEMENT).to(seq_u8.device)
+    comp = to_device(_COMPLEMENT, seq_u8.device)
     rc = comp[torch.flip(seq_u8, dims=[-1]).long()]
     # rev-hash of window starting at i == hash of rc window at L-i-k
     bwd = torch.flip(hash_kmer_windows(rc, k), dims=[-1])

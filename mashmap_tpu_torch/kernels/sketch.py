@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .kmers import canonical_kmer_hashes
-from .murmur import UMAX, flip
+from .murmur import INT64_MIN, UMAX, flip
 
 _TWO64 = float(2.0 ** 64)
 
@@ -57,7 +57,7 @@ def sketch_fragments(frags: torch.Tensor, k: int, s: int):
     hashes, strand, palin, has_n, _ = canonical_kmer_hashes(frags, k)
     valid = ~palin & ~has_n
     key = flip(torch.where(valid, hashes, UMAX))   # signed == u64 order
-    fmax = flip(torch.tensor(UMAX, dtype=torch.int64))
+    fmax = UMAX ^ INT64_MIN                        # flip(UMAX)
     skey, perm = torch.sort(key, dim=-1, stable=True)
     sstr = torch.gather(strand.to(torch.int32), 1, perm)
     live = skey != fmax

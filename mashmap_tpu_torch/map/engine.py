@@ -7,7 +7,9 @@ Counterpart of ``mashmap_tpu/map/engine.py``; equivalent of
   batch axis; each batch runs ``l1_step`` and then ``l2_step`` on the
   device (kernels/mapdev.py) — on a list of devices, one contiguous row
   block each (parallel/mesh.py), over a replicated or a sharded index
-  (parallel/sharded_index.py);
+  (parallel/sharded_index.py) — with at most two batches in flight
+  (``Mapper._run_pipelined``) and every copy queued on the stream
+  (hostcopy.py);
 - fragments or candidates that overflow the device caps take the host
   routes (map/l1.py, map/l2.py), which give the same rows;
 - results are regrouped per query (a query's fragments may span
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import stats
+from ..hostcopy import HostCopy, to_device
 from ..params import FIXED, Parameters, FILTER_MAP, FILTER_ONETOONE
 from ..index.builder import ReferenceIndex
 from ..kernels import kmers
@@ -88,14 +91,21 @@ def _batch_pad_rows(B: int, batch_fragments: int, n_dev: int = 1) -> int:
     return _round_up(Bp, n_dev)
 
 
+def _gather_sketch_rows(qh_dev, qs_dev, indices):
+    """Device row gather of sketch codes/strands at ``indices`` (batch
+    rows); returns their copies to the host (HostCopy), started."""
+    ix = to_device(np.asarray(indices, np.int64), qh_dev.device)
+    return HostCopy(qh_dev[ix]), HostCopy(qs_dev[ix])
+
+
 @dataclasses.dataclass
 class _Fragment:
     query_idx: int          # position in the batch's query list
     q_start: int            # fragment offset within the query
     q_len: int              # fragment length (== Q.len)
     window_len: int         # max(0, q_len - seg_length)
-    q: object = None        # owning _Query (pipelined path)
-    ord: int = 0            # ordinal within the query (pipelined path)
+    q: object = None        # owning _Query
+    ord: int = 0            # ordinal within the query
 
 
 @dataclasses.dataclass
@@ -103,8 +113,9 @@ class _Query:
     name: str
     seq: str
     counter: int            # global sequence counter (file order)
-    # pipelined-path state: per-query results accumulate here until
-    # every fragment has been delivered
+    # pipelined-path state: fragments of one query may land in different
+    # device batches, so per-query results accumulate here until every
+    # fragment has been delivered
     u8: object = None       # sanitized bytes (np.uint8)
     allowed: object = None  # admissible-reference mask (or None)
     qg: int = -1            # reference prefix group
@@ -116,17 +127,22 @@ class _Query:
 
 @dataclasses.dataclass
 class _Batch:
-    """One device batch of fragments."""
+    """One in-flight device batch of fragments."""
     frags: list
     mat: object = None          # (B, L) uint8 host matrix
-    out: object = None          # l1_step packed meta (device)
+    out: object = None          # l1_step packed meta, copying (HostCopy)
     qh_dev: object = None       # (B, s) sketch codes (device)
     qs_dev: object = None
+    stage: int = 0              # 0 = l1 dispatched, 1 = l2 dispatched
     o: object = None            # unpacked l1 meta (host)
     cx: object = None
     host_frags: object = None   # set of batch-frag indices
     host_l2_set: object = None  # set of (i, j)
-    pending: object = None      # [(chunk, device run buffer)]
+    pending: object = None      # [(chunk, nrows)]
+    pcat: object = None         # concatenated l2 run buffers (HostCopy)
+    # (frag indices, HostCopy pair of their sketch rows), gathered at
+    # L2 dispatch for the host replay
+    qh_pick: object = None
     loci_by: object = None
     qh_host: object = None
 
@@ -178,6 +194,21 @@ class Mapper:
         # which device/host routes ran
         self.path_stats = {"host_frags": 0, "host_l2": 0,
                            "l2_buckets": {}}
+        # host seconds of each map phase, summed over batches (_clock)
+        self.phase_s: dict[str, float] = {}
+
+    def _clock(self):
+        """mark(label): the host seconds since the previous mark (or
+        since this call) are logged as a map phase and added to
+        ``phase_s[label]``."""
+        t = [time.perf_counter()]
+
+        def mark(label):
+            now = time.perf_counter()
+            self.phase_s[label] = self.phase_s.get(label, 0.0) + now - t[0]
+            logger.debug("map phase %-13s %.4fs", label, now - t[0])
+            t[0] = now
+        return mark
 
     @property
     def mi_key(self) -> np.ndarray:
@@ -557,7 +588,7 @@ class Mapper:
         for dev in ([self.device] if self._sharded is not None
                     else distinct(self.devices)):
             def put(x, dev=dev):
-                return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                return to_device(x, dev)
 
             t = {"min_hits_table": put(mh_table),
                  "cutoff_table": put(ct),
@@ -630,10 +661,12 @@ class Mapper:
 
     def _dispatch_batch(self, frags) -> _Batch:
         """Stage 1: host matrix prep + l1_step (one call per device
-        block, or the sharded step)."""
+        block, or the sharded step); the packed meta's copy to the host
+        starts behind it."""
         from ..kernels.mapdev import l1_step
 
         p = self.p
+        mark = self._clock()
         dev = self._device_tables()
         cfg = self._l1cfg()
         B = len(frags)
@@ -644,16 +677,15 @@ class Mapper:
         for i, fr in enumerate(frags):
             mat[i, :fr.q_len] = fr.q.u8[fr.q_start:fr.q_start + fr.q_len]
             allowed[i] = True if fr.q.allowed is None else fr.q.allowed
-        mat_t, allowed_t = torch.from_numpy(mat), torch.from_numpy(allowed)
         if self._sharded is not None:
             from ..parallel.sharded_index import l1_step_sharded
             si = self._sharded
             # gather at most p_cap postings a shard: a row with more
             # overflows to the host route however many are gathered
             out, qh_dev, qs_dev = l1_step_sharded(
-                mat_t.to(self.device), si.uniq, si.offsets, si.seqid,
+                to_device(mat, self.device), si.uniq, si.offsets, si.seqid,
                 si.wpos, si.wend, si.frequent, dev["min_hits_table"],
-                dev["cutoff_table"], allowed_t.to(self.device),
+                dev["cutoff_table"], to_device(allowed, self.device),
                 dev["ref_group"], si.mi_key, si.mi_row0, si.key_bounds,
                 cfg, min(si.p_shard, cfg.p_cap))
         else:
@@ -661,17 +693,24 @@ class Mapper:
             for d, rows in self._row_blocks(Bp):
                 t = self._tables[d]
                 parts.append(l1_step(
-                    mat_t[rows].to(d), t["uniq_flip"], t["post_offsets"],
-                    t["post_seqid"], t["post_wpos"], t["post_wend"],
-                    t["is_frequent"], t["min_hits_table"],
-                    t["cutoff_table"], allowed_t[rows].to(d),
+                    to_device(mat[rows], d), t["uniq_flip"],
+                    t["post_offsets"], t["post_seqid"], t["post_wpos"],
+                    t["post_wend"], t["is_frequent"], t["min_hits_table"],
+                    t["cutoff_table"], to_device(allowed[rows], d),
                     t["ref_group"], t["mi_key"], cfg))
             out, qh_dev, qs_dev = (self._cat_rows(x) for x in zip(*parts))
-        return _Batch(frags=frags, mat=mat[:B], out=out,
-                      qh_dev=qh_dev, qs_dev=qs_dev)
+        ctx = _Batch(frags=frags, mat=mat[:B], out=HostCopy(out),
+                     qh_dev=qh_dev, qs_dev=qs_dev)
+        mark("l1-dispatch")
+        return ctx
 
     def _collect_l1(self, ctx: _Batch):
-        """Stage 2: fetch l1 meta, derive L2 work, run the l2 chunks."""
+        """Stage 2: pick up the l1 meta, derive the L2 work, dispatch
+        the l2 chunks; one copy of their run buffers and of the sketch
+        rows of the host-replay items known now starts behind them.
+
+        The wait overlaps whatever is queued behind this batch's l1_step
+        on the device (the next batch's l1, earlier l2 chunks)."""
         from ..kernels.mapdev import unpack_l1_meta
 
         p = self.p
@@ -679,7 +718,10 @@ class Mapper:
         frags = ctx.frags
         B = len(frags)
         L = p.seg_length
-        o = unpack_l1_meta(ctx.out.cpu().numpy()[:B], cfg.c_cap)
+        mark = self._clock()
+        meta = ctx.out.wait()
+        mark("l1-wait")
+        o = unpack_l1_meta(meta[:B], cfg.c_cap)
         ctx.out = None
         ctx.o = o
 
@@ -705,6 +747,7 @@ class Mapper:
                              int(o["cand_mid"][i, j]),
                              int(o["cand_hi"][i, j])))
         ctx.host_frags = host_frags
+        mark("l1-fetch")
 
         # bucket work items by interval-slice length; W*T stays constant
         AREA = p.l2_batch * p.l2_entries_cap // 2
@@ -724,10 +767,25 @@ class Mapper:
                 host_l2_set.add((w[0], w[1]))
                 self.path_stats["host_l2"] += 1
         if self._sharded is not None:
-            ctx.pending = self._l2_sharded(ctx, buckets, AREA)
+            pending = self._l2_sharded(ctx, buckets, AREA)
         else:
-            ctx.pending = self._l2_replicated(ctx, buckets, AREA)
+            pending = self._l2_replicated(ctx, buckets, AREA)
+        # every chunk's run buffer has the same width: one concatenation
+        # on the device and one copy, which has usually landed by the
+        # time _collect_l2 runs (after the next batch's l1 dispatch)
+        if pending:
+            ctx.pcat = HostCopy(torch.cat([b for _, b in pending])
+                                if len(pending) > 1 else pending[0][1])
+        ctx.pending = [(chunk, b.shape[0]) for chunk, b in pending]
+        # host-replay sketch rows known now: gathered right behind this
+        # batch's L2 chunks; a gather started in _collect_l2 would queue
+        # behind later batches' l1_step and L2 work and wait for it
+        need = sorted({i for (i, _j) in host_l2_set})
+        ctx.qh_pick = (need, _gather_sketch_rows(
+            ctx.qh_dev, ctx.qs_dev, need) if need else None)
         ctx.host_l2_set = host_l2_set
+        ctx.stage = 1
+        mark("l2-dispatch")
 
     @staticmethod
     def _work_arrays(items, o, Wp: int, row0: int = 0):
@@ -760,13 +818,13 @@ class Mapper:
                 parts = []
                 for d, rows in self._row_blocks(Wp):
                     t = self._tables[d]
-                    wd = torch.from_numpy(
-                        np.ascontiguousarray(wa[:, rows])).to(d)
-                    fi = torch.from_numpy(fidx[rows]).to(self.device)
+                    wd = to_device(wa[:, rows], d)
+                    # sketches stay on the device: a row gather by
+                    # fragment index
+                    fi = to_device(fidx[rows], self.device)
                     parts.append(l2_step(
                         wd[0], wd[1], wd[2], wd[3], ctx.qh_dev[fi].to(d),
-                        ctx.qs_dev[fi].to(d),
-                        torch.from_numpy(sqv[rows]).to(d),
+                        ctx.qs_dev[fi].to(d), to_device(sqv[rows], d),
                         t["mi_rank"], t["mi_wpos"], t["mi_wend"],
                         t["mi_strand"], t["mi_seqid"], T, p.sketch_size))
                 pending.append((chunk, self._cat_rows(parts)))
@@ -802,12 +860,12 @@ class Mapper:
                     chunk[d * Wp:d * Wp + len(items)] = items
                     wa, fidx, sqv = self._work_arrays(
                         items, ctx.o, Wp, int(bnds[d]))
-                    wd = torch.from_numpy(wa).to(dev)
-                    fi = torch.from_numpy(fidx).to(self.device)
+                    wd = to_device(wa, dev)
+                    fi = to_device(fidx, self.device)
                     args.append((wd[0], wd[1], wd[2], wd[3],
                                  ctx.qh_dev[fi].to(dev),
                                  ctx.qs_dev[fi].to(dev),
-                                 torch.from_numpy(sqv).to(dev)))
+                                 to_device(sqv, dev)))
                 bufs = l2_step_sharded(
                     *(list(a) for a in zip(*args)), si.mi_rank, si.mi_wpos,
                     si.mi_wend, si.mi_strand, si.mi_seqid, T, p.sketch_size)
@@ -815,46 +873,53 @@ class Mapper:
         return pending
 
     def _collect_l2(self, ctx: _Batch):
-        """Stage 3: one copy of all l2 run buffers + host-replay rows."""
+        """Stage 3: pick up the l2 run buffers and the host-replay
+        sketch rows. Rows known at dispatch were gathered in
+        _collect_l1; fragments whose L2 overflowed only here need a
+        second small gather."""
         from ..kernels.mapdev import unpack_l2_runs
 
         p = self.p
         o = ctx.o
         host_l2_set = ctx.host_l2_set
         loci_by = {}
-        if ctx.pending:
-            all_runs = torch.cat([b for _, b in ctx.pending]).cpu().numpy()
-            row0 = 0
-            for chunk, b in ctx.pending:
-                nrows = b.shape[0]
-                n_runs, best, r_ovf, starts, ends, strands = \
-                    unpack_l2_runs(all_runs[row0:row0 + nrows])
-                row0 += nrows
-                for r, item in enumerate(chunk):
-                    if item is None:       # sharded-routing pad row
-                        continue
-                    i, j = item[:2]
-                    if r_ovf[r]:
-                        host_l2_set.add((i, j))
-                        continue
-                    loci_by[(i, j)] = l2_mod.loci_from_runs(
-                        n_runs[r], best[r], starts[r], ends[r],
-                        strands[r], int(o["cand_seq"][i, j]),
-                        p.seg_length)
-        ctx.pending = None
+        mark = self._clock()
+        all_runs = ctx.pcat.wait() if ctx.pending else None
+        need, pick = ctx.qh_pick
+        qh_rows = [c.wait() for c in pick] if need else None
+        mark("l2-wait")
+        row0 = 0
+        for chunk, nrows in ctx.pending:
+            n_runs, best, r_ovf, starts, ends, strands = \
+                unpack_l2_runs(all_runs[row0:row0 + nrows])
+            row0 += nrows
+            for r, item in enumerate(chunk):
+                if item is None:       # sharded-routing pad row
+                    continue
+                i, j = item[:2]
+                if r_ovf[r]:
+                    host_l2_set.add((i, j))
+                    continue
+                loci_by[(i, j)] = l2_mod.loci_from_runs(
+                    n_runs[r], best[r], starts[r], ends[r],
+                    strands[r], int(o["cand_seq"][i, j]),
+                    p.seg_length)
+        ctx.pending = ctx.pcat = None
         ctx.loci_by = loci_by
 
         # sketch rows only for fragments whose L2 replays on the host
-        need = sorted({i for (i, _j) in host_l2_set})
-        qh_host = {}
-        if need:
-            ix = torch.tensor(need, dtype=torch.int64, device=self.device)
-            qh_rows = ctx.qh_dev[ix].cpu().numpy()
-            qs_rows = ctx.qs_dev[ix].cpu().numpy()
-            qh_host = {i: (qh_rows[t], qs_rows[t])
-                       for t, i in enumerate(need)}
+        qh_host = {i: (qh_rows[0][t], qh_rows[1][t])
+                   for t, i in enumerate(need)}
+        ctx.qh_pick = None
+        late = sorted({i for (i, _j) in host_l2_set} - set(need))
+        if late:
+            qh_l, qs_l = (c.wait() for c in _gather_sketch_rows(
+                ctx.qh_dev, ctx.qs_dev, late))
+            qh_host.update({i: (qh_l[t], qs_l[t])
+                            for t, i in enumerate(late)})
         ctx.qh_host = qh_host
         ctx.qh_dev = ctx.qs_dev = None
+        mark("l2-fetch")
 
     def _post_batch(self, ctx: _Batch):
         """Stage 4: per-fragment row assembly with exact pruning
@@ -867,6 +932,7 @@ class Mapper:
         host_l2_set = ctx.host_l2_set
         loci_by = ctx.loci_by
         qh_host = ctx.qh_host
+        mark = self._clock()
         out = []
         for i, fr in enumerate(ctx.frags):
             q = fr.q
@@ -916,6 +982,7 @@ class Mapper:
                                    cands, loci_fn)
             rows.sort(key=lambda m: (m.ref_seq_id, m.ref_start))
             out.append((fr, rows))
+        mark("post")
         return out
 
     def _filter_by_group(self, rows: List[MappingResult], n_mappings: int,
@@ -947,17 +1014,28 @@ class Mapper:
         return out
 
     # ------------------------------------------------------------------
-    def _run_batched(self, queries, out: IO[str], meter=None) -> None:
-        """Streaming device mapping, one batch at a time.
+    def _run_pipelined(self, queries, out: IO[str], meter=None) -> None:
+        """Streaming, depth-2 pipelined device mapping.
 
-        Fragments stream into fixed-size batches; a query's fragments may
-        land in different batches, so per-query rows accumulate on the
-        _Query and each query finalizes — merge/filter/emit, in input
-        order — once its last fragment is delivered. Each delivered
-        fragment credits its bases to the meter.
+        Fragments stream into fixed-size batches and at most two batches
+        are in flight: while batch N's l1 meta travels to the host,
+        batch N+1's host prep and l1 dispatch and batch N-1's l2 collect
+        proceed, so device work, copies and host post-processing
+        overlap. The reference overlaps I/O and compute with a thread
+        pool (computeMap.hpp:607-637); this is the single-host-thread
+        equivalent, driven by the stream's queue and the copies' events
+        (hostcopy.py).
+
+        Fragments of one query may land in different batches; per-query
+        rows accumulate on the _Query and each query finalizes —
+        merge/filter/emit, in input order — once its last fragment is
+        delivered. Each delivered fragment credits its bases to the
+        meter.
         """
         import collections
         p = self.p
+        BF = p.batch_fragments
+        inflight: collections.deque = collections.deque()
         finalq: collections.deque = collections.deque()
         cur: list = []
 
@@ -969,22 +1047,37 @@ class Mapper:
                 meter.increment(inc)
                 q.counted += inc
 
-        def run_batch():
-            nonlocal cur
-            if not cur:
-                return
-            ctx = self._dispatch_batch(cur)
-            cur = []
-            self._collect_l1(ctx)
-            self._collect_l2(ctx)
-            for fr, rows in self._post_batch(ctx):
-                fr.q.rows[fr.ord] = (fr, rows)
-                fr.q.done += 1
-                credit(fr.q, fr)
+        def finalize_ready():
             while finalq and finalq[0].done == finalq[0].n_frags:
                 q = finalq.popleft()
                 self._emit(q, self._postprocess_query(q, q.rows), out)
                 q.rows = q.u8 = q.allowed = None
+
+        def complete(ctx):
+            for fr, rows in self._post_batch(ctx):
+                q = fr.q
+                q.rows[fr.ord] = (fr, rows)
+                q.done += 1
+                credit(q, fr)
+            finalize_ready()
+
+        def submit():
+            nonlocal cur
+            if not cur:
+                return
+            inflight.append(self._dispatch_batch(cur))
+            cur = []
+            # steady state holds [N-1 (l2 in flight), N (l1 in flight)]:
+            # every wait below has the next batch's device work already
+            # queued behind it
+            if len(inflight) >= 2 and inflight[-2].stage == 0:
+                self._collect_l1(inflight[-2])
+            while len(inflight) >= 3:
+                b = inflight[0]
+                if b.stage == 0:
+                    self._collect_l1(b)
+                self._collect_l2(b)
+                complete(inflight.popleft())
 
         for q in queries:
             self._prepare_query(q)
@@ -996,10 +1089,16 @@ class Mapper:
                 cur.append(_Fragment(
                     0, qs, qlen, max(0, qlen - p.seg_length),
                     q=q, ord=o_))
-                if len(cur) == p.batch_fragments:
-                    run_batch()
-        run_batch()
-        assert not finalq, "batched path left unfinished queries"
+                if len(cur) == BF:
+                    submit()
+        submit()
+        while inflight:
+            b = inflight.popleft()
+            if b.stage == 0:
+                self._collect_l1(b)
+            self._collect_l2(b)
+            complete(b)
+        assert not finalq, "pipelined path left unfinished queries"
 
     def run(self, query_files: Sequence[str], out: IO[str],
             progress: Optional[bool] = None, reader=None) -> None:
@@ -1069,7 +1168,7 @@ class Mapper:
                 self.total_bp += qlen
 
         if p.use_device_pipeline and p.split:
-            self._run_batched(owned_queries(), out, meter)
+            self._run_pipelined(owned_queries(), out, meter)
         else:
             pending: List[_Query] = []
             pending_frags = 0

@@ -28,6 +28,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..hostcopy import to_device
 from ..kernels.mapdev import (I32MAX, L1Config, l2_step,
                               sweep_and_candidates)
 from ..kernels.murmur import UMAX, flip
@@ -159,8 +160,7 @@ def build_sharded_index(idx, devices, halo: int = L2_T_MAX) -> ShardedIndex:
             kb[d] = key[bounds[d]]
 
     def put(a):
-        return [torch.from_numpy(np.ascontiguousarray(a[d])).to(dev)
-                for d, dev in enumerate(devices)]
+        return [to_device(a[d], dev) for d, dev in enumerate(devices)]
 
     return ShardedIndex(
         n_shards=n, u_shard=u_shard, p_shard=p_shard, devices=devices,

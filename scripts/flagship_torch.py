@@ -157,6 +157,19 @@ def timed_theta(device, calls):
         winnow.theta_chunk = chunk
 
 
+def group_seconds():
+    """{first contig of a group: [main thread s, worker s]} of the last
+    index build: the device part of each contig group runs on the main
+    thread, its host part on the build's worker thread
+    (index/builder.py's GROUP_PHASE_S and WORKER_PHASES)."""
+    from mashmap_tpu_torch.index import builder
+    return {gid: [sum(s for k, s in ph.items()
+                      if k not in builder.WORKER_PHASES),
+                  sum(s for k, s in ph.items()
+                      if k in builder.WORKER_PHASES)]
+            for gid, ph in builder.GROUP_PHASE_S.items()}
+
+
 def build_phase(ref, idx_path, device, smi):
     import torch
     from mashmap_tpu_torch.api import build_or_load_index
@@ -181,6 +194,7 @@ def build_phase(ref, idx_path, device, smi):
     t0 = time.perf_counter()
     with timed_theta(device, calls):
         idx = build_or_load_index(p, device)
+    groups = group_seconds()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     build_s = time.perf_counter() - t0
@@ -201,6 +215,9 @@ def build_phase(ref, idx_path, device, smi):
            "npz_ok": npz_ok(idx_path), **got,
            "theta_launches": launches,
            "theta_calls_rows_s_ms": calls,
+           "groups_main_worker_s": groups,
+           "main_s": sum(m for m, _ in groups.values()),
+           "worker_s": sum(w for _, w in groups.values()),
            "peak_device_bytes": peak_device_bytes(device),
            "peak_host_rss_bytes": peak_rss_bytes()}
     if want is not None:

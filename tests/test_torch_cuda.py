@@ -1,7 +1,8 @@
 """The port on a CUDA card: the hand-written theta and banded DP trace
 kernels against their plain versions, and the card's index build (the
-over-limit host route included), its sharded and data-parallel maps (the card
-listed twice) and its alignments against the CPU's.
+over-limit host route included), its pipelined map, its sharded and
+data-parallel maps (the card listed twice) and its alignments against the
+CPU's.
 
 These tests need a card and skip without one. The card's machine has no
 JAX, so run them there without the JAX-importing conftest:
@@ -222,6 +223,26 @@ def _small_map(tmp_path, devices, shard):
                    no_progress=True, shard_index=shard)
     map_files(p, devices=devices)
     return open(out).read()
+
+
+def test_pipelined_map_on_card_equals_cpu(cuda, tmp_path):
+    """The pipelined map at 4 fragments a batch (queries spanning
+    batches, copies in flight behind the next batch's work) writes the
+    CPU's PAF on the card."""
+    from mashmap_tpu_torch.api import map_files
+    from mashmap_tpu_torch.params import Parameters
+    ref = str(tmp_path / "ref.fa")
+    write_fasta(ref, pangenome(3, 60_000, 0.05, seed=17))
+    outs = []
+    for dev in (cuda, "cpu"):
+        out = str(tmp_path / f"{dev}.paf")
+        map_files(Parameters(ref_sequences=[ref], out_file_name=out,
+                             kmer_size=15, seg_length=2000, sketch_size=60,
+                             percentage_identity=0.85, skip_prefix=True,
+                             prefix_delim="#", batch_fragments=4,
+                             no_progress=True), device=dev)
+        outs.append(open(out).read())
+    assert outs[0].count("\n") > 3 and outs[0] == outs[1]
 
 
 @pytest.mark.parametrize("shard", [True, False])

@@ -172,8 +172,9 @@ def test_subset_keeps_whole_contigs_in_file_order(pair, tmp_path, gbp):
 def test_flagship_script_end_to_end_on_cpu(pair, tmp_path, monkeypatch,
                                            capsys):
     """scripts/flagship_torch.py --device cpu: build with save (a valid
-    npz), a subset, the map with --loadIndex past the coverage gate, and
-    two resident runs with the same PAF."""
+    npz, the group's main-thread and worker seconds), a subset, the map
+    with --loadIndex past the coverage gate, and two resident runs with
+    the same PAF."""
     ref, asm, contigs = pair
     monkeypatch.setenv("MASHMAP_TPU_FLAGSHIP_REF", ref)
     monkeypatch.setenv("MASHMAP_TPU_FLAGSHIP_ASM", asm)
@@ -191,6 +192,11 @@ def test_flagship_script_end_to_end_on_cpu(pair, tmp_path, monkeypatch,
     calls = build["theta_calls_rows_s_ms"]
     assert calls and all(c[0] > 0 and c[1] == build["s"] for c in calls)
     assert build["minmers"] > 0 and build["interval_rows"] > 0
+    # one contig group: its device part on the main thread, its host
+    # part on the build's worker thread, both timed
+    groups = build["groups_main_worker_s"]
+    assert list(groups) == ["0"] and min(groups["0"]) > 0, groups
+    assert build["main_s"] > 0 and build["worker_s"] > 0
     assert "jax_build" not in build
     assert subset["contigs"] < len(contigs)
     assert mapped["query_sequences"] == subset["contigs"]

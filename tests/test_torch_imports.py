@@ -62,6 +62,7 @@ def test_port_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize("script", ["scripts/flagship_torch.py",
+                                    "scripts/map_stages.py",
                                     "chip_smoke.py", "bench_torch.py",
                                     "bench_extra_torch.py"])
 def test_port_scripts_import_neither(script):
@@ -77,6 +78,38 @@ def test_port_scripts_import_neither(script):
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_package_entry_points_are_lazy():
+    """``mashmap_tpu_torch.map_files`` and ``build_or_load_index`` exist,
+    as in the JAX package's __init__, and importing the package loads
+    neither JAX nor the modules behind them."""
+    code = ("import sys; import mashmap_tpu_torch as m; "
+            "assert callable(m.map_files) and "
+            "callable(m.build_or_load_index); "
+            "assert 'mashmap_tpu_torch.api' not in sys.modules; "
+            "assert not any(k == 'jax' or k.startswith('jax.') "
+            "for k in sys.modules)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_package_entry_points_call_the_api(monkeypatch):
+    """The lazy entry points hand their arguments, the device included,
+    to api.map_files and api.build_or_load_index."""
+    import mashmap_tpu_torch as m
+    from mashmap_tpu_torch import api
+    seen = []
+    monkeypatch.setattr(api, "map_files",
+                        lambda *a, **kw: seen.append(("map", a, kw)))
+    monkeypatch.setattr(api, "build_or_load_index",
+                        lambda *a, **kw: seen.append(("build", a, kw)))
+    m.map_files("p", "idx", device="cpu")
+    m.build_or_load_index("p", device="cpu")
+    assert seen == [("map", ("p", "idx"), {"device": "cpu",
+                                           "devices": None}),
+                    ("build", ("p", "cpu"), {})]
 
 
 def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
