@@ -8,9 +8,11 @@ same workload (data/generated/bench_pan4x1500000.fa, 4 haplotypes of
 -Y '#' -n 1, batch_fragments 1024), through ``map_files`` on "cuda":
 theta.cu and the native reader built first (their first-use builds are
 not in a run), one cold run (the process's first: the cutoff table and
-the first launches), then ``--reps`` warm runs, every run's seconds on
-stderr. The cutoff table goes to a fresh $XDG_CACHE_HOME, removed at the
-end, so the cold run computes it whatever earlier runs left.
+the first launches and the capture of the map steps' CUDA graphs), then
+``--reps`` warm runs, every run's seconds and graph captures on stderr
+(a warm run captures none). The cutoff table goes to a fresh
+$XDG_CACHE_HOME, removed at the end, so the cold run computes it
+whatever earlier runs left.
 
     python3 bench_torch.py [--reps N] [--root DIR]
 
@@ -75,13 +77,16 @@ def run_ours(fasta, out, reps):
     their seconds (cold first)."""
     import torch
     from mashmap_tpu_torch.api import map_files
+    from mashmap_tpu_torch.kernels import graphs
     times = []
     for _ in range(1 + reps):
+        graphs.reset_counts()
         t0 = time.perf_counter()
         map_files(make_params(fasta, out), device="cuda")
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        print(f"[bench_torch] run {len(times) - 1}: {times[-1]} s",
+        print(f"[bench_torch] run {len(times) - 1}: {times[-1]} s, "
+              f"map step graphs captured {dict(graphs.CAPTURES)}",
               file=sys.stderr)
     return times
 

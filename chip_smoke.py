@@ -43,13 +43,23 @@ Phases, in order; any failure propagates and exits non-zero:
    the native reader and the Python parser, and the two readers' time
    on the FASTA alone; then one run under torch.profiler (device busy
    time and the top kernels of the build and the map; the map's batches,
-   its CUDA runtime calls that block the host (no cudaStreamSynchronize)
-   and its host seconds by map phase, Mapper.phase_s);
+   its CUDA runtime calls that block the host (no cudaStreamSynchronize),
+   its kernel and graph launches a batch, and its host seconds by map
+   phase, Mapper.phase_s). Every map's l1_step and l2_step calls are
+   counted (kernels/graphs.py, step_counts): each call is a graph
+   replay, the steps' eager Python runs only to warm up and capture, the
+   cold run captures at most one graph a shape, and the warm and
+   profiled runs (each over the index built again: the same shapes)
+   capture none; the cold map is then run again from an empty cache,
+   through the graphs and with the steps run eagerly, and the graphs'
+   peak reserved memory may exceed the eager steps' by at most 10%
+   (peak_vs_eager);
 6. card against CPU: on a small pangenome the card's index arrays and PAF
    bytes equal the port's own CPU run; [pipeline] (a): the same pangenome
    mapped on the card at PIPELINE_BATCH fragments a batch (15 batches
    through Mapper._run_pipelined, queries spanning them), its PAF the
-   CPU's, under torch.profiler with no cudaStreamSynchronize;
+   CPU's, once to capture its graphs and once under torch.profiler with
+   no cudaStreamSynchronize and every step call a replay;
 7. [cli]: `python -m mashmap_tpu_torch.cli` in a subprocess with
    bench.py's flags gives the main path's PAF byte for byte; once more
    with --legacy for the aligner;
@@ -65,8 +75,10 @@ Phases, in order; any failure propagates and exits non-zero:
 9. the parallel layer, on the card listed twice: [shard] the main path's
    pangenome through a Mapper with shard_index and devices
    [cuda:0, cuda:0] (two shards asserted), PAF == the main path's,
-   build and map s, bytes per shard, path_stats, peak device memory;
-   [mesh] the same with the replicated index, PAF == the main path's;
+   build and map s, bytes per shard, path_stats, peak device memory,
+   no step through the graph cache (the sharded steps stay eager);
+   [mesh] the same with the replicated index, PAF == the main path's,
+   both row blocks replaying one graph a shape;
    [dist] two processes of the CLI meeting at a coordinator on
    127.0.0.1, in the default mode and in -f one-to-one, the merged PAF
    == the single-process CLI's, no part files left, wall s;
@@ -87,6 +99,11 @@ Phases, in order; any failure propagates and exits non-zero:
    of that reference at --pi 78) on a cut of the queries, L2 calls on
    the device cut by the L2 byte budget; (a) and (c) mapped again with
    the budget lifted and at it, and (c) on the CPU, each the same PAF;
+   (a) mapped again with the steps eager and through the graphs, and
+   (c)'s L2 call widened to the budget's full call width and its
+   quarter width run both ways, each from an empty cache: the same
+   PAF, equal outputs, and the graphs' peak reserved memory at most 10%
+   over the eager steps' (peak_vs_eager, l2_peak_gate);
    for each: build and map s, theta_wide.cu's
    launches (> 0, and none of theta.cu), path_stats, peak device memory,
    and the coverage gate; [small-pi78]: the small pangenome at --pi 78,
@@ -708,23 +725,29 @@ def main_path(fa, device):
         t1 = time.perf_counter()
         build_peak = peak()
         path_stats = "not read (map_files)"
-        if tag == "cold":
-            map_files(p, index=idx, device=device)
-        else:
-            mapper = Mapper(p, idx, device)
-            with open(out, "w") as fh:
-                mapper.run(p.query_sequences, fh)
-            path_stats = mapper.path_stats
-        torch.cuda.synchronize()
+        batches = [0]
+        with step_counts() as steps, count_batches(batches):
+            if tag == "cold":
+                map_files(p, index=idx, device=device)
+            else:
+                mapper = Mapper(p, idx, device)
+                with open(out, "w") as fh:
+                    mapper.run(p.query_sequences, fh)
+                path_stats = mapper.path_stats
+            torch.cuda.synchronize()
         t2 = time.perf_counter()
         with open(out) as fh:
             paf = fh.read()
         print(f"[main] {tag}: s={p.sketch_size} k={p.kmer_size} "
               f"w={p.seg_length} query_bp={bp} build_s={t1 - t0} "
               f"map_s={t2 - t1} query_mbp_per_s={bp / 1e6 / (t2 - t0)}")
+        reserved = torch.cuda.max_memory_reserved(device)
         print(f"[main] {tag}: paf_rows={paf.count(chr(10))} "
               f"path_stats={path_stats} max_memory_allocated build="
-              f"{build_peak} map={peak()}")
+              f"{build_peak} map={peak()} (reserved {reserved})")
+        # the first map of the process captures the steps' graphs; a
+        # warm map over an index of the same shapes replays them all
+        check_steps(f"[main] {tag}:", steps, batches[0], tag != "cold")
         return paf
 
     theta.LAUNCHES = 0
@@ -746,6 +769,11 @@ def main_path(fa, device):
         if run(tag, reader) != paf:
             raise AssertionError(f"the {tag} run's PAF differs from the "
                                  f"cold's")
+    # the cold map's memory against the eager steps'; [profile] then
+    # replays the graphs this leaves cached
+    peak_vs_eager("[main]", params(fa, os.path.join(DATA,
+                                                   "smoke_main_peak.paf")),
+                  device, paf)
     reader_times(fa)
     # the cold run's one-off host set-up: the L1 cutoff table, which
     # the Mapper computes with SciPy and the process memoizes
@@ -776,16 +804,18 @@ def profile_main_path(fa, device, top=12):
             if phase == "build":
                 idx = build_or_load_index(p, device)
             else:
-                with grab_mappers(mappers), count_batches(batches):
+                with grab_mappers(mappers), count_batches(batches), \
+                        step_counts() as steps:
                     map_files(p, index=idx, device=device)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
         print_profile("[profile]", phase, prof, wall_ms, top, "theta_")
     calls = runtime_calls(prof)
     print(f"[profile] map: {batches[0]} batches; CUDA runtime calls "
-          f"{calls}")
+          f"{calls}; a batch {per_batch(calls, batches[0])}")
     print(f"[profile] map: host s by map phase "
           f"{dict(sorted(mappers[0].phase_s.items()))}")
+    check_steps("[profile] map:", steps, batches[0], warm=True)
     # every copy of the pipelined map waits on its own event
     # (hostcopy.py), never on the whole stream
     if calls["cudaLaunchKernel"] == 0:
@@ -798,10 +828,226 @@ def profile_main_path(fa, device, top=12):
 
 def runtime_calls(prof):
     """Counts, in a torch.profiler window, of the CUDA runtime calls that
-    block the host and of the kernel launches (the check that runtime
-    calls were traced at all)."""
+    block the host and of the kernel and graph launches (the check that
+    runtime calls were traced at all)."""
     counts = {e.key: e.count for e in prof.key_averages()}
-    return {k: counts.get(k, 0) for k in ("cudaLaunchKernel",) + BLOCKING}
+    return {k: counts.get(k, 0)
+            for k in ("cudaLaunchKernel", "cudaGraphLaunch") + BLOCKING}
+
+
+def per_batch(calls, batches):
+    """The kernel and graph launches of a profiled map a batch."""
+    return {k: calls[k] / max(1, batches)
+            for k in ("cudaLaunchKernel", "cudaGraphLaunch")}
+
+
+STEPS = ("l1_step", "l2_step")
+
+
+@contextlib.contextmanager
+def step_counts():
+    """Counts, for the map steps of the block (kernels/graphs.py's
+    counters set to 0 first): the calls the map makes through
+    graphs.call on the card, the argument shapes of those calls, and
+    the times each step's eager Python ran (a warm-up and a capture for
+    each graph, nothing else); "last" holds each step's last call on the
+    card, (args, static)."""
+    import functools
+    import torch
+    from mashmap_tpu_torch.kernels import graphs, mapdev
+    got = {"calls": dict.fromkeys(STEPS, 0), "eager": dict.fromkeys(STEPS, 0),
+           "shapes": {k: set() for k in STEPS}, "last": {}}
+    real_call = graphs.call
+    real = {k: getattr(mapdev, k) for k in STEPS}
+
+    def call(device, step, args, *static):
+        if torch.device(device).type == "cuda":
+            got["calls"][step.__name__] += 1
+            got["shapes"][step.__name__].add((tuple(
+                tuple(a.shape) for a in args), static))
+            got["last"][step.__name__] = (args, static)
+        return real_call(device, step, args, *static)
+
+    def eager(name):
+        @functools.wraps(real[name])
+        def f(*a, **kw):
+            got["eager"][name] += 1
+            return real[name](*a, **kw)
+        return f
+    graphs.reset_counts()
+    graphs.call = call
+    for k in STEPS:
+        setattr(mapdev, k, eager(k))
+    try:
+        yield got
+    finally:
+        graphs.call = real_call
+        for k in STEPS:
+            setattr(mapdev, k, real[k])
+        got["captures"] = {k: graphs.CAPTURES.get(k, 0) for k in STEPS}
+        got["replays"] = {k: graphs.REPLAYS.get(k, 0) for k in STEPS}
+
+
+def check_steps(tag, got, l1_calls, warm, l2=True):
+    """Gates on step_counts' counts of a replicated map on the card:
+    l1_step was called l1_calls times (batches x row blocks) and, with
+    l2, l2_step at least once; every call of each step was a replay,
+    captures at most the shapes used, and the step's eager Python ran
+    only to warm up and capture (twice a capture); with warm, nothing
+    was captured."""
+    calls, eager = got["calls"], got["eager"]
+    caps, reps = got["captures"], got["replays"]
+    shapes = {k: len(v) for k, v in got["shapes"].items()}
+    print(f"{tag} map steps: calls {calls}, replays {reps}, captures "
+          f"{caps} (shapes used {shapes}), eager runs {eager}")
+    if calls["l1_step"] != l1_calls or (l2 and calls["l2_step"] == 0):
+        raise AssertionError(f"{tag} step calls {calls}, expected "
+                             f"{l1_calls} of l1_step")
+    for k in STEPS:
+        if reps[k] != calls[k] or caps[k] > shapes[k]:
+            raise AssertionError(f"{tag} {k}: {calls[k]} calls, "
+                                 f"{reps[k]} replays, {caps[k]} captures "
+                                 f"for {shapes[k]} shapes")
+        if eager[k] != 2 * caps[k]:
+            raise AssertionError(f"{tag} {k} ran eagerly {eager[k]} times "
+                                 f"for {caps[k]} captures")
+        if warm and caps[k]:
+            raise AssertionError(f"{tag} {k}: a warm map captured "
+                                 f"{caps[k]} graphs")
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """graphs.call runs each step eagerly on the card, as the map did
+    before the graph cache: peak_vs_eager's memory baseline."""
+    import numpy as np
+    import torch
+    from mashmap_tpu_torch.hostcopy import to_device
+    from mashmap_tpu_torch.kernels import graphs
+    real = graphs.call
+
+    def call(device, step, args, *static):
+        return step(*(to_device(a, torch.device(device))
+                      if isinstance(a, np.ndarray) else a for a in args),
+                    *static)
+    graphs.call = call
+    try:
+        yield
+    finally:
+        graphs.call = real
+
+
+def reserved_peak(device, run):
+    """run() from an empty graph cache and an emptied allocator; returns
+    (peak reserved, peak allocated, reserved before) in bytes."""
+    import torch
+    from mashmap_tpu_torch.kernels import graphs
+    graphs.clear(device)
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_reserved(device)
+    run()
+    torch.cuda.synchronize(device)
+    return (torch.cuda.max_memory_reserved(device),
+            torch.cuda.max_memory_allocated(device), before)
+
+
+def check_peaks(tag, peaks):
+    """Prints both routes' peaks; fails if the graphs' peak reserved
+    memory exceeds the eager steps' by more than 10%."""
+    print(f"{tag} peak device memory from an empty cache (reserved, "
+          f"allocated, reserved before), eager steps {peaks['eager']}, "
+          f"graphs {peaks['graphs']}: reserved ratio "
+          f"{peaks['graphs'][0] / peaks['eager'][0]}")
+    if peaks["graphs"][0] > 1.10 * peaks["eager"][0]:
+        raise AssertionError(f"{tag} the graphs' peak reserved memory is "
+                             f"over 1.10 x the eager steps': {peaks}")
+
+
+def peak_vs_eager(tag, p, device, want_paf, idx=None):
+    """p mapped against idx (built when None) on the card, each time from
+    an empty graph cache and an emptied allocator: with every step run
+    eagerly, then through the graph cache (every shape captured, as in a
+    cold map, whose graphs stay cached). Both PAFs must be want_paf, and
+    the graphs' peak reserved memory at most 10% over the eager steps'."""
+    from mashmap_tpu_torch.api import build_or_load_index, map_files
+    if idx is None:
+        idx = build_or_load_index(p, device)
+    peaks = {}
+    for route, steps in (("eager", eager_steps),
+                         ("graphs", contextlib.nullcontext)):
+        def run():
+            with steps():
+                map_files(p, index=idx, device=device)
+        peaks[route] = reserved_peak(device, run)
+        with open(p.out_file_name) as fh:
+            if fh.read() != want_paf:
+                raise AssertionError(f"{tag} the {route} map's PAF differs")
+    check_peaks(tag, peaks)
+
+
+def l2_peak_gate(tag, p, device, m, last):
+    """The map's last l2_step call on the card (last: step_counts' "last",
+    emptied here, so that the call's device tensors can be freed; m: its
+    Mapper), its work items repeated to the full call width at the
+    L2 byte budget and then to the quarter width, as a bucket's full
+    chunks and its tail come: both calls run eagerly and then through the
+    graph cache, each time from an empty cache and an emptied allocator.
+    The outputs must be equal, and the graphs' peak reserved memory at
+    most 10% over the eager steps'. Clears the cache after."""
+    import numpy as np
+    import torch
+    from mashmap_tpu_torch.hostcopy import to_device
+    from mashmap_tpu_torch.kernels import graphs
+    from mashmap_tpu_torch.kernels.mapdev import l2_step
+    from mashmap_tpu_torch.map import engine
+    args, (T, s) = last.pop("l2_step")
+    last.clear()
+    # the rows of the 7 per-item arguments, on the host; the 5 tables
+    # are the device's cached mi_* set, bound anew after each clear
+    rows = [a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+            for a in args[:7]]
+    del args
+    mi = ("mi_rank", "mi_wpos", "mi_wend", "mi_strand", "mi_seqid")
+    w_step, w_small = engine._l2_widths(
+        p.l2_batch * p.l2_entries_cap // 2, T, s)
+    print(f"{tag} full-width L2 call: T={T} s={s} widths {w_step}, "
+          f"{w_small} from the map's {len(rows[0])} rows; one (W, s, 2T) "
+          f"int32 intermediate {w_step * s * 2 * T * 4} bytes")
+
+    def inputs(n, t):
+        ix = np.arange(n) % len(rows[0])
+        a = [r[ix] for r in rows]
+        a[4], a[5] = (torch.from_numpy(x).to(device) for x in a[4:6])
+        return (*a, *(t[k] for k in mi))
+
+    peaks, outs = {}, {}
+    for route in ("eager", "graphs"):
+        got = []
+
+        def run():
+            t = graphs.tables(device, m, m._host_tables)
+            for n in (w_step, w_small):
+                a = inputs(n, t)
+                if route == "eager":
+                    got.append(l2_step(*(
+                        to_device(x, device) if isinstance(x, np.ndarray)
+                        else x for x in a), T, s))
+                else:
+                    got.append(graphs.call(device, l2_step, a, T, s))
+        peaks[route] = reserved_peak(device, run)
+        outs[route] = [g.cpu() for g in got]
+        del got
+    if not all(torch.equal(a, b) for a, b in zip(outs["eager"],
+                                                 outs["graphs"])):
+        raise AssertionError(f"{tag} the full-width L2 call's replay "
+                             f"differs from the eager step")
+    print(f"{tag} full-width L2 call: replay == eager step, "
+          f"{int((outs['eager'][0][:, 0] > 0).sum())} of {w_step} rows "
+          f"with runs")
+    check_peaks(f"{tag} full-width L2 call", peaks)
+    graphs.clear(device)
 
 
 @contextlib.contextmanager
@@ -862,11 +1108,18 @@ def pipeline_phase(fa, device):
     p.batch_fragments = PIPELINE_BATCH
     theta.LAUNCHES = theta.WIDE_LAUNCHES = 0
     idx = build_or_load_index(p, device)
+    # the first map captures the steps' graphs at this index's shapes;
+    # the profiled one replays them
+    batches = [0]
+    with count_batches(batches), step_counts() as steps:
+        map_files(p, index=idx, device=device)
+    check_steps("[pipeline] (a) first map:", steps, batches[0], warm=False)
     mappers, batches = [], [0]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        with grab_mappers(mappers), count_batches(batches):
+        with grab_mappers(mappers), count_batches(batches), \
+                step_counts() as steps:
             map_files(p, index=idx, device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -876,9 +1129,11 @@ def pipeline_phase(fa, device):
     print(f"[pipeline] (a) batch_fragments={p.batch_fragments}: "
           f"{batches[0]} batches, map {wall} s (profiled), theta.cu "
           f"launches {launches}, path_stats {m.path_stats}")
-    print(f"[pipeline] (a) CUDA runtime calls {calls}")
+    print(f"[pipeline] (a) CUDA runtime calls {calls}; a batch "
+          f"{per_batch(calls, batches[0])}")
     print(f"[pipeline] (a) host s by map phase "
           f"{dict(sorted(m.phase_s.items()))}")
+    check_steps("[pipeline] (a) profiled map:", steps, batches[0], warm=True)
     with open(out, "rb") as fh:
         got = fh.read()
     with open(small_paf(PI, "cpu"), "rb") as fh:
@@ -1265,10 +1520,21 @@ def two_entry_phase(tag, fa, device, want_paf, shard, reps=2):
         launches = theta.LAUNCHES
         build_peak = peak_bytes(device)
         mapper = Mapper(p, idx, devices=devices)
-        with open(out, "w") as fh:
+        batches = [0]
+        with count_batches(batches), step_counts() as steps, \
+                open(out, "w") as fh:
             mapper.run(p.query_sequences, fh)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        if shard:
+            # the sharded steps stay eager, as the JAX package's prewarm
+            # leaves them out
+            if any(steps["calls"].values()):
+                raise AssertionError(f"{tag} a sharded step ran through "
+                                     f"the graph cache: {steps}")
+        else:
+            check_steps(f"{tag} run {rep}:", steps, 2 * batches[0],
+                        warm=rep > 0)
         if shard:
             si = mapper._sharded
             if si is None or si.n_shards != 2:
@@ -1459,7 +1725,7 @@ def cut_fasta(fa, n_bp, tag):
 def wide_map(tag, p, device, idx=None):
     """build_or_load_index (unless idx is given) and map_files on the
     card with theta launches counted from 0; prints and returns (index,
-    PAF, theta_wide.cu launches, Mapper, map s)."""
+    PAF, theta_wide.cu launches, Mapper, map s, step_counts' counts)."""
     import torch
     from mashmap_tpu_torch.api import build_or_load_index, map_files
     from mashmap_tpu_torch.kernels import theta
@@ -1471,22 +1737,27 @@ def wide_map(tag, p, device, idx=None):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     build_peak = peak_bytes(device)
-    mappers = []
-    with grab_mappers(mappers):
+    mappers, batches = [], [0]
+    with grab_mappers(mappers), count_batches(batches), \
+            step_counts() as steps:
         map_files(p, index=idx, device=device)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     with open(p.out_file_name) as fh:
         paf = fh.read()
+    reserved = torch.cuda.max_memory_reserved(device)
     print(f"[wide-s] {tag} s={p.sketch_size} pi={p.percentage_identity} "
           f"l1_postings_cap={p.l1_postings_cap}: build_s={t1 - t0} "
           f"map_s={t2 - t1} theta launches: theta_wide.cu "
           f"{theta.WIDE_LAUNCHES}, theta.cu {theta.LAUNCHES}; "
           f"paf_rows={paf.count(chr(10))} path_stats={mappers[0].path_stats} "
-          f"max_memory_allocated build={build_peak} map={peak_bytes(device)}")
+          f"max_memory_allocated build={build_peak} map={peak_bytes(device)} "
+          f"(reserved {reserved})")
+    check_steps(f"[wide-s] {tag}", steps, batches[0], warm=False,
+                l2=bool(mappers[0].path_stats["l2_buckets"]))
     if theta.LAUNCHES != 0:
         raise AssertionError(f"[wide-s] {tag} launched theta.cu")
-    return idx, paf, theta.WIDE_LAUNCHES, mappers[0], t2 - t1
+    return idx, paf, theta.WIDE_LAUNCHES, mappers[0], t2 - t1, steps
 
 
 @contextlib.contextmanager
@@ -1548,7 +1819,10 @@ def wide_phase(fa, device, names, table_job):
     import torch
     from mashmap_tpu_torch import stats
     from mashmap_tpu_torch.api import map_files
+    from mashmap_tpu_torch.kernels import graphs
     from mashmap_tpu_torch.params import FIXED, Parameters
+    # the earlier phases' table set and graph pool go back to the driver
+    graphs.clear(device)
     print(f"[wide-s] card memory "
           f"{torch.cuda.get_device_properties(device).total_memory} bytes")
     # (a) the whole pangenome at s = 680
@@ -1564,8 +1838,11 @@ def wide_phase(fa, device, names, table_job):
     print(f"[wide-s] (a) cutoff table s={len(tbl) - 1} computed in "
           f"{job_out.strip()} s by a child process, beside the card's "
           f"phases; read back in {time.perf_counter() - t0} s")
-    idx, paf, launches_a, m, _ = wide_map("(a)", p, device)
+    idx, paf, launches_a, m, _, _ = wide_map("(a)", p, device)
     coverage_gate("(a)", paf, names)
+    peak_vs_eager("[wide-s] (a)", params(
+        fa, os.path.join(DATA, "smoke_wide_a_peak.paf"), PI_WIDE,
+        l1_postings_cap=WIDE_P_CAP), device, paf, idx)
     if launches_a <= 0:
         raise AssertionError("[wide-s] (a) launched no theta_wide.cu")
     l2_widths_line("(a)", p, m)
@@ -1576,7 +1853,8 @@ def wide_phase(fa, device, names, table_job):
     for cap in (Parameters.l1_postings_cap, WIDE_P_CAP):
         pc = params(fa, os.path.join(DATA, f"smoke_wide_cut_{cap}.paf"),
                     PI_WIDE, query_sequences=[cut], l1_postings_cap=cap)
-        _, paf_c, _, m, map_s = wide_map(f"(a') cap {cap}", pc, device, idx)
+        _, paf_c, _, m, map_s, _ = wide_map(f"(a') cap {cap}", pc, device,
+                                            idx)
         n_frag = -(-WIDE_CUT_BP // pc.seg_length)
         print(f"[wide-s] (a') cap {cap}: {m.path_stats['host_frags']} of "
               f"{n_frag} fragments to the host L1 route, "
@@ -1587,13 +1865,13 @@ def wide_phase(fa, device, names, table_job):
                              "from the device route's")
     print("[wide-s] (a') host route PAF == device route PAF, byte for byte")
     del idx
-    torch.cuda.empty_cache()
+    graphs.clear(device)
     # (b) the whole pangenome's index at s = 3780, a cut of the queries
     cut = cut_fasta(fa, HUMAN_CUT_BP, "b")
     p = params(fa, os.path.join(DATA, "smoke_wide_b.paf"), PI_HUMAN,
                sketch_size=S_HUMAN, stage1_topANI_filter=False,
                query_sequences=[cut])
-    _, paf, launches_b, _, _ = wide_map("(b)", p, device)
+    _, paf, launches_b, _, _, _ = wide_map("(b)", p, device)
     coverage_gate("(b)", paf, names[:1])
     if launches_b <= 0:
         raise AssertionError("[wide-s] (b) launched no theta_wide.cu")
@@ -1603,7 +1881,7 @@ def wide_phase(fa, device, names, table_job):
     kw = dict(sketch_size=S_HUMAN78, stage1_topANI_filter=False,
               query_sequences=[cut], l1_postings_cap=L2_CUT_P_CAP)
     p = params(fa, os.path.join(DATA, "smoke_wide_c.paf"), PI_HUMAN78, **kw)
-    idx, paf, launches_c, m, _ = wide_map("(c)", p, device)
+    idx, paf, launches_c, m, _, steps = wide_map("(c)", p, device)
     coverage_gate("(c)", paf, names[:1])
     if launches_c <= 0:
         raise AssertionError("[wide-s] (c) launched no theta_wide.cu")
@@ -1620,6 +1898,8 @@ def wide_phase(fa, device, names, table_job):
                                  "CPU's")
     print(f"[wide-s] (c) cpu map_s={time.perf_counter() - t0}; card PAF "
           f"== CPU PAF")
+    # (c)'s one device L2 call widened to the budget's full call width
+    l2_peak_gate("[wide-s] (c)", p, device, m, steps.pop("last"))
     return {"a": launches_a, "b": launches_b, "c": launches_c}
 
 

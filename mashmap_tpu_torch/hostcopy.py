@@ -8,8 +8,10 @@ on the stream, the next batch's work included. Here a device-to-host
 copy goes into pinned host memory right behind the op that produced its
 source, an event is recorded after it, and the host later waits on that
 event alone; a host-to-device copy is staged in pinned memory and queued
-with no wait. Pinned blocks come from PyTorch's caching host allocator,
-which reuses a block only after the copies queued on it are done.
+with no wait, into a new tensor (``to_device``) or an existing one
+(``copy_into``: a CUDA graph's static input). Pinned blocks come from
+PyTorch's caching host allocator, which reuses a block only after the
+copies queued on it are done.
 
 On a CPU device the same calls hand back the tensors themselves.
 """
@@ -47,3 +49,13 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type != "cuda":
         return t
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def copy_into(dst: torch.Tensor, a: np.ndarray) -> None:
+    """Copy ``a`` into the existing tensor ``dst`` (of its shape): on a
+    CUDA device staged in pinned memory and queued on the current stream
+    without a wait."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dst.device.type == "cuda":
+        t = t.pin_memory()
+    dst.copy_(t, non_blocking=True)

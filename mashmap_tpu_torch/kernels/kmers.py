@@ -19,6 +19,8 @@ Reference semantics reimplemented here (counterpart of
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -47,6 +49,14 @@ def sanitize(seq_bytes: bytes | np.ndarray) -> np.ndarray:
     arr = np.frombuffer(seq_bytes, dtype=np.uint8) if isinstance(
         seq_bytes, (bytes, bytearray)) else np.asarray(seq_bytes, np.uint8)
     return _SANITIZE[arr]
+
+
+@functools.lru_cache(maxsize=None)
+def _complement_on(device: torch.device) -> torch.Tensor:
+    """The complement table on ``device``, uploaded once: a copy from host
+    memory inside a step would be recorded into its CUDA graph, which
+    would then read a pinned buffer that the host reuses."""
+    return to_device(_COMPLEMENT, device)
 
 
 def revcomp_np(seq_u8: np.ndarray) -> np.ndarray:
@@ -82,7 +92,7 @@ def canonical_kmer_hashes(seq_u8: torch.Tensor, k: int):
     n = L - k + 1
     fwd = hash_kmer_windows(seq_u8, k)
 
-    comp = to_device(_COMPLEMENT, seq_u8.device)
+    comp = _complement_on(seq_u8.device)
     rc = comp[torch.flip(seq_u8, dims=[-1]).long()]
     # rev-hash of window starting at i == hash of rc window at L-i-k
     bwd = torch.flip(hash_kmer_windows(rc, k), dims=[-1])

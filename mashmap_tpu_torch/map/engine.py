@@ -5,7 +5,9 @@ Counterpart of ``mashmap_tpu/map/engine.py``; equivalent of
 
 - query sequences are cut into segLength fragments that form a flat
   batch axis; each batch runs ``l1_step`` and then ``l2_step`` on the
-  device (kernels/mapdev.py) — on a list of devices, one contiguous row
+  device (kernels/mapdev.py; on CUDA each call of the replicated path
+  is the replay of a CUDA graph captured for its shape, kernels/
+  graphs.py) — on a list of devices, one contiguous row
   block each (parallel/mesh.py), over a replicated or a sharded index
   (parallel/sharded_index.py) — with at most two batches in flight
   (``Mapper._run_pipelined``) and every copy queued on the stream
@@ -33,8 +35,8 @@ from .. import stats
 from ..hostcopy import HostCopy, to_device
 from ..params import FIXED, Parameters, FILTER_MAP, FILTER_ONETOONE
 from ..index.builder import ReferenceIndex
-from ..kernels import kmers
-from ..kernels.murmur import flip
+from ..kernels import graphs, kmers
+from ..kernels.murmur import INT64_MIN
 from ..kernels.sketch import sketch_fragments, complexity_rescale
 from ..parallel.mesh import distinct, make_mesh
 from ..parallel.sharded_index import L2_T_MAX
@@ -168,6 +170,7 @@ class Mapper:
         self._sharded = None
         self._dist = None
         self._mi_key = None
+        self._host_tables = None
         self._dev = None
         self._cfg = None
         self.table_scale = max(
@@ -563,12 +566,29 @@ class Mapper:
 
     # --- device fragment pipeline ------------------------------------
     def _device_tables(self):
-        """The lookup tables and the index on the devices (once): one
-        replicated copy per distinct device, or, with shard_index on
-        more than one entry, the index split across the entries and only
-        the small tables on the first."""
-        if self._dev is not None:
+        """The lookup tables and the index on the devices. Replicated:
+        one table set per distinct device in ``self._tables``, on CUDA the
+        device's graph-cache set (kernels/graphs.py) bound to this Mapper
+        at every call, so that another Mapper's use of the device in
+        between cannot leave its contents there. With shard_index on more
+        than one entry: the index split across the entries and only the
+        small tables on the first, made once. Returns the first device's
+        tables."""
+        if self._host_tables is None:
+            self._host_tables = self._make_host_tables()
+        if self._sharded is not None:
+            if self._dev is None:
+                self._dev = {k: to_device(a, self.device)
+                             for k, a in self._host_tables.items()}
             return self._dev
+        self._tables = {d: graphs.tables(d, self, self._host_tables)
+                        for d in distinct(self.devices)}
+        self._dev = self._tables[self.device]
+        return self._dev
+
+    def _make_host_tables(self):
+        """The tables of _device_tables as numpy arrays (name -> array);
+        builds the sharded index where one is asked for."""
         p = self.p
         idx = self.idx
         mh_table = np.ones(p.sketch_size + 1, np.int32)
@@ -583,34 +603,26 @@ class Mapper:
             logger.warning(
                 "shard_index requested but only one device is visible; "
                 "falling back to the replicated index")
-
-        self._tables = {}
-        for dev in ([self.device] if self._sharded is not None
-                    else distinct(self.devices)):
-            def put(x, dev=dev):
-                return to_device(x, dev)
-
-            t = {"min_hits_table": put(mh_table),
-                 "cutoff_table": put(ct),
-                 "ref_group": put(self.ref_groups.astype(np.int32))}
-            if self._sharded is None:
-                t.update({
-                    "uniq_flip": flip(put(idx.uniq_hashes.view(np.int64))),
-                    "post_offsets": put(idx.post_offsets.astype(np.int64)),
-                    "post_seqid": put(idx.post_seqid),
-                    "post_wpos": put(idx.post_wpos),
-                    "post_wend": put(idx.post_wend),
-                    "is_frequent": put(idx.is_frequent),
-                    "mi_key": put(self.mi_key),
-                    "mi_seqid": put(idx.mi_seqid),
-                    "mi_wpos": put(idx.mi_wpos),
-                    "mi_rank": put(idx.mi_rank),
-                    "mi_wend": put(idx.mi_wend),
-                    "mi_strand": put(idx.mi_strand),
-                })
-            self._tables[dev] = t
-        self._dev = self._tables[self.device]
-        return self._dev
+        t = {"min_hits_table": mh_table, "cutoff_table": ct,
+             "ref_group": self.ref_groups.astype(np.int32)}
+        if self._sharded is None:
+            t.update({
+                # flip (kernels/murmur.py) on the host
+                "uniq_flip": idx.uniq_hashes.view(np.int64)
+                ^ np.int64(INT64_MIN),
+                "post_offsets": np.asarray(idx.post_offsets, np.int64),
+                "post_seqid": idx.post_seqid,
+                "post_wpos": idx.post_wpos,
+                "post_wend": idx.post_wend,
+                "is_frequent": idx.is_frequent,
+                "mi_key": self.mi_key,
+                "mi_seqid": idx.mi_seqid,
+                "mi_wpos": idx.mi_wpos,
+                "mi_rank": idx.mi_rank,
+                "mi_wend": idx.mi_wend,
+                "mi_strand": idx.mi_strand,
+            })
+        return t
 
     def _row_blocks(self, n_rows: int):
         """(device, rows) of each device's contiguous block of ``n_rows``
@@ -668,6 +680,7 @@ class Mapper:
         p = self.p
         mark = self._clock()
         dev = self._device_tables()
+        mark("l1-tables")
         cfg = self._l1cfg()
         B = len(frags)
         Bp = _batch_pad_rows(B, p.batch_fragments, self._n_dev)
@@ -692,12 +705,12 @@ class Mapper:
             parts = []
             for d, rows in self._row_blocks(Bp):
                 t = self._tables[d]
-                parts.append(l1_step(
-                    to_device(mat[rows], d), t["uniq_flip"],
-                    t["post_offsets"], t["post_seqid"], t["post_wpos"],
-                    t["post_wend"], t["is_frequent"], t["min_hits_table"],
-                    t["cutoff_table"], to_device(allowed[rows], d),
-                    t["ref_group"], t["mi_key"], cfg))
+                parts.append(graphs.call(d, l1_step, (
+                    mat[rows], t["uniq_flip"], t["post_offsets"],
+                    t["post_seqid"], t["post_wpos"], t["post_wend"],
+                    t["is_frequent"], t["min_hits_table"],
+                    t["cutoff_table"], allowed[rows], t["ref_group"],
+                    t["mi_key"]), cfg))
             out, qh_dev, qs_dev = (self._cat_rows(x) for x in zip(*parts))
         ctx = _Batch(frags=frags, mat=mat[:B], out=HostCopy(out),
                      qh_dev=qh_dev, qs_dev=qs_dev)
@@ -818,15 +831,14 @@ class Mapper:
                 parts = []
                 for d, rows in self._row_blocks(Wp):
                     t = self._tables[d]
-                    wd = to_device(wa[:, rows], d)
                     # sketches stay on the device: a row gather by
                     # fragment index
                     fi = to_device(fidx[rows], self.device)
-                    parts.append(l2_step(
-                        wd[0], wd[1], wd[2], wd[3], ctx.qh_dev[fi].to(d),
-                        ctx.qs_dev[fi].to(d), to_device(sqv[rows], d),
-                        t["mi_rank"], t["mi_wpos"], t["mi_wend"],
-                        t["mi_strand"], t["mi_seqid"], T, p.sketch_size))
+                    parts.append(graphs.call(d, l2_step, (
+                        wa[0, rows], wa[1, rows], wa[2, rows], wa[3, rows],
+                        ctx.qh_dev[fi].to(d), ctx.qs_dev[fi].to(d),
+                        sqv[rows], t["mi_rank"], t["mi_wpos"], t["mi_wend"],
+                        t["mi_strand"], t["mi_seqid"]), T, p.sketch_size))
                 pending.append((chunk, self._cat_rows(parts)))
         return pending
 

@@ -10,10 +10,16 @@ Parameters, batch_fragments 1024) with the index resident: one warm-up
 stage timed around its calls (``_dispatch_batch``, ``_collect_l1``,
 ``_collect_l2``, ``_post_batch``, and the per-query ``_postprocess_query``
 and ``_emit``; "other" is the rest of the run's wall: reading and cutting
-the queries, the loop), then one run under torch.profiler: its wall, the
-device's busy time and idle share, and the count of CUDA runtime calls
+the queries, the loop; and the Mapper's own ``phase_s``, host seconds by
+map phase), then one run under torch.profiler: its wall, the
+device's busy time and idle share, the count of CUDA runtime calls
 that block the host (``cudaStreamSynchronize``, ``cudaEventSynchronize``,
-``cudaDeviceSynchronize``) against the count of batches. The stages are
+``cudaDeviceSynchronize``) against the count of batches, and the kernel
+and graph launches (``cudaLaunchKernel``, ``cudaGraphLaunch``). Every
+run's record has the map steps' graph captures and replays
+(kernels/graphs.py). The warm-up captures the steps' graphs; the later
+runs should capture none.
+The stages are
 methods of both the serial and the pipelined Mapper, so ``--root DIR``
 (a checkout to import mashmap_tpu_torch from) compares two trees on one
 card, one process each, in turns. One JSON line a run, with the card's
@@ -57,7 +63,7 @@ def map_once(Mapper, p, idx, out):
     with open(out, "w") as fh:
         m.run(p.query_sequences, fh)
     torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, m.phase_s
 
 
 def main():
@@ -94,23 +100,31 @@ def run(args, card):
     base = {"root": os.path.abspath(args.root),
             "package": os.path.dirname(mashmap_tpu_torch.__file__),
             "device": card}
-    warm_s = map_once(Mapper, p, idx, out)
+    from mashmap_tpu_torch.kernels import graphs
+
+    def step_graphs():
+        return {"captures": dict(graphs.CAPTURES),
+                "replays": dict(graphs.REPLAYS)}
+
+    warm_s, _ = map_once(Mapper, p, idx, out)
     with open(out, "rb") as fh:
         want = fh.read()
-    print(json.dumps({**base, "run": "warm-up", "wall_s": warm_s}))
+    print(json.dumps({**base, "run": "warm-up", "wall_s": warm_s,
+                      **step_graphs()}))
     seconds, calls = {}, {}
     timed_stages(Mapper, seconds, calls)
     for rep in range(args.reps + 1):
         seconds.clear()
         calls.clear()
+        graphs.reset_counts()
         torch.cuda.reset_peak_memory_stats()
         if rep < args.reps:
-            wall = map_once(Mapper, p, idx, out)
+            wall, phase_s = map_once(Mapper, p, idx, out)
             rec = {"run": rep}
         else:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                wall = map_once(Mapper, p, idx, out)
+                wall, phase_s = map_once(Mapper, p, idx, out)
             ev = prof.key_averages()
             busy_ms = sum(e.self_device_time_total for e in ev
                           if str(e.device_type).endswith("CUDA")) / 1e3
@@ -118,6 +132,7 @@ def run(args, card):
             rec = {"run": "profiled", "device_busy_ms": busy_ms,
                    "idle_share": 1 - busy_ms / (1e3 * wall),
                    "cudaLaunchKernel": counts.get("cudaLaunchKernel", 0),
+                   "cudaGraphLaunch": counts.get("cudaGraphLaunch", 0),
                    **{k: counts.get(k, 0) for k in BLOCKING}}
         with open(out, "rb") as fh:
             if fh.read() != want:
@@ -127,7 +142,8 @@ def run(args, card):
         stage_s["other"] = wall - sum(seconds.values())
         print(json.dumps({**base, **rec, "wall_s": wall,
                           "batches": calls.get("_dispatch_batch", 0),
-                          "stage_s": stage_s,
+                          "stage_s": stage_s, "phase_s": phase_s,
+                          **step_graphs(),
                           "peak_bytes": torch.cuda.max_memory_allocated()}))
     return 0
 

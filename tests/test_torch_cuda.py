@@ -273,3 +273,214 @@ def test_over_limit_host_route_on_card_equals_cpu(cuda):
         np.testing.assert_array_equal(getattr(a, f), getattr(c, f),
                                       err_msg=f)
     assert a.freq_threshold == b.freq_threshold == c.freq_threshold
+
+
+@pytest.fixture
+def fresh_graphs():
+    """An empty graph cache and zero counts (kernels/graphs.py)."""
+    from mashmap_tpu_torch.kernels import graphs
+    graphs.clear()
+    graphs.reset_counts()
+    yield graphs
+    graphs.clear()
+    graphs.reset_counts()
+
+
+class _Owner:
+    """Stands for a Mapper as the owner of a table set."""
+
+
+@pytest.fixture(scope="module")
+def step_inputs():
+    """The replicated path's host tables for a small pangenome's index
+    (built on the CPU), the L1 config, and three batches of fragments."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: graphs capture on the card only")
+    from mashmap_tpu_torch.map.engine import Mapper
+    from mashmap_tpu_torch.params import Parameters
+    recs = pangenome(3, 30_000, 0.05, seed=31)
+    idx = builder.build_index(recs, 11, 500, 24, device="cpu")
+    p = Parameters(ref_sequences=["-"], out_file_name="-", kmer_size=11,
+                   seg_length=500, sketch_size=24, percentage_identity=0.85,
+                   no_progress=True)
+    m = Mapper(p, idx, device="cpu")
+    host = m._make_host_tables()
+    batches = []
+    for b in range(3):
+        g = recs[b][1]
+        rows = [mutate(g[i:i + 500], 0.02, seed=i + b)
+                for i in range(b * 700, 24_000, 1_500)][:16]
+        mat = np.full((len(rows), 500), ord("N"), np.uint8)
+        for r, seq in enumerate(rows):
+            mat[r, :min(500, len(seq))] = np.frombuffer(
+                seq.encode(), np.uint8)[:500]
+        batches.append(mat)
+    allowed = np.ones((16, idx.n_contigs), bool)
+    return host, m._l1cfg(), batches, allowed
+
+
+def _l1_args(t, frags, allowed):
+    return (frags, t["uniq_flip"], t["post_offsets"], t["post_seqid"],
+            t["post_wpos"], t["post_wend"], t["is_frequent"],
+            t["min_hits_table"], t["cutoff_table"], allowed, t["ref_group"],
+            t["mi_key"])
+
+
+def _on(args, dev):
+    return tuple(torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray)
+                 else a for a in args)
+
+
+def test_l1_step_replay_equals_eager(cuda, fresh_graphs, step_inputs):
+    """The first call captures and replays; two replays in a row on other
+    fragments, neither read before the other ran, each equal the eager
+    step on their own inputs, as does the first."""
+    from mashmap_tpu_torch.kernels.mapdev import l1_step
+    graphs = fresh_graphs
+    host, cfg, batches, allowed = step_inputs
+    owner = _Owner()
+    t = graphs.tables(cuda, owner, host)
+    got = [graphs.call(cuda, l1_step, _l1_args(t, f, allowed), cfg)
+           for f in batches]
+    assert graphs.CAPTURES == {"l1_step": 1}
+    assert graphs.REPLAYS == {"l1_step": 3}
+    for f, g in zip(batches, got):
+        want = l1_step(*_on(_l1_args(t, f, allowed), cuda), cfg=cfg)
+        for a, b in zip(g, want):
+            assert torch.equal(a, b)
+    assert int(got[1][0][:, 1].sum()) > 0         # candidates found
+
+
+@pytest.mark.parametrize("T", [512, 1024])
+@pytest.mark.parametrize("width", ["step", "small"])
+def test_l2_step_replay_equals_eager(cuda, fresh_graphs, step_inputs, T,
+                                     width):
+    """l2_step at two T buckets and both of the map's call widths: the
+    capture call (captured, then replayed), then two replays on other
+    work items before either is read, each equal to the eager step."""
+    from mashmap_tpu_torch.kernels.mapdev import (l1_step, l2_step,
+                                                  unpack_l1_meta)
+    from mashmap_tpu_torch.map.engine import _l2_widths
+    graphs = fresh_graphs
+    host, cfg, batches, allowed = step_inputs
+    owner = _Owner()
+    t = graphs.tables(cuda, owner, host)
+    meta, q_code, q_strand = l1_step(
+        *_on(_l1_args(t, batches[0], allowed), cuda), cfg=cfg)
+    o = unpack_l1_meta(meta.cpu().numpy(), cfg.c_cap)
+    items = [(i, j) for i in range(len(batches[0]))
+             for j in range(int(o["n_cand"][i]))
+             if o["cand_hi"][i, j] - o["cand_lo"][i, j] <= T]
+    assert len(items) >= 4
+    area = 512 * 2048 // 2
+    W = _l2_widths(area, T, cfg.s)[0 if width == "step" else 1]
+    calls = []
+    for shift in range(3):
+        it = (items[shift:] + items[:shift]) * (W // len(items) + 1)
+        ii = np.array([i for i, _ in it[:W]])
+        jj = np.array([j for _, j in it[:W]])
+        w = [o[f][ii, jj].astype(np.int32)
+             for f in ("cand_lo", "cand_mid", "cand_hi", "cand_seq")]
+        fi = torch.from_numpy(ii).to(cuda)
+        calls.append((*w, q_code[fi], q_strand[fi],
+                      o["s_q"][ii].astype(np.int32), t["mi_rank"],
+                      t["mi_wpos"], t["mi_wend"], t["mi_strand"],
+                      t["mi_seqid"]))
+    got = [graphs.call(cuda, l2_step, a, T, cfg.s) for a in calls]
+    assert graphs.CAPTURES == {"l2_step": 1}
+    assert graphs.REPLAYS == {"l2_step": 3}
+    for a, g in zip(calls, got):
+        assert torch.equal(g, l2_step(*_on(a, cuda), t_cap=T, s=cfg.s))
+    assert int(got[2][:, 0].max()) > 0             # runs found
+
+
+def _card_map(tmp_path, ref, tag, devices):
+    """ref's self-map on `devices` through a Mapper over an index built
+    on the card; returns the PAF."""
+    from mashmap_tpu_torch.api import build_or_load_index
+    from mashmap_tpu_torch.map.engine import Mapper
+    from mashmap_tpu_torch.params import Parameters
+    out = str(tmp_path / f"{tag}.paf")
+    p = Parameters(ref_sequences=[ref], out_file_name=out, kmer_size=15,
+                   seg_length=2000, sketch_size=60, percentage_identity=0.85,
+                   skip_prefix=True, prefix_delim="#", batch_fragments=64,
+                   no_progress=True).finalize()
+    idx = build_or_load_index(p, devices[0])
+    with open(out, "w") as fh:
+        Mapper(p, idx, devices=devices).run(p.query_sequences, fh)
+    with open(out) as fh:
+        return fh.read()
+
+
+def test_second_mapper_captures_nothing_other_index_drops(cuda, tmp_path,
+                                                         fresh_graphs):
+    """A second Mapper over the same index (built again) captures nothing
+    and replays into the same table tensors; a Mapper over an index of
+    other shapes drops the device's graphs and table set and captures
+    anew; each PAF equals the CPU's."""
+    graphs = fresh_graphs
+    a, b = str(tmp_path / "a.fa"), str(tmp_path / "b.fa")
+    write_fasta(a, pangenome(3, 60_000, 0.05, seed=13))
+    write_fasta(b, pangenome(2, 90_000, 0.05, seed=14))
+    want_a = _card_map(tmp_path, a, "a-cpu", ["cpu"])
+    want_b = _card_map(tmp_path, b, "b-cpu", ["cpu"])
+    assert _card_map(tmp_path, a, "a1", [cuda]) == want_a
+    cache = graphs._cache(cuda)
+    first = dict(graphs.CAPTURES)
+    tables = dict(cache.tables)
+    sig = cache.sig
+    assert first["l1_step"] >= 1 and first["l2_step"] >= 1
+    replays = dict(graphs.REPLAYS)
+    assert _card_map(tmp_path, a, "a2", [cuda]) == want_a
+    assert graphs.CAPTURES == first
+    assert graphs.REPLAYS["l1_step"] > replays.get("l1_step", 0)
+    assert all(cache.tables[k] is v for k, v in tables.items())
+    assert _card_map(tmp_path, b, "b1", [cuda]) == want_b
+    assert cache.sig != sig
+    assert all(cache.tables[k] is not v for k, v in tables.items())
+    captured_b = sum(graphs.CAPTURES.values()) - sum(first.values())
+    assert captured_b >= 2 and len(cache.graphs) == captured_b
+
+
+def test_two_blocks_on_one_card_replay_one_graph(cuda, tmp_path,
+                                                 fresh_graphs):
+    """[cuda:0, cuda:0] replays each shape's graph for both row blocks
+    back to back (the copy-out keeps the first block's result) and
+    writes the single-device PAF."""
+    graphs = fresh_graphs
+    ref = str(tmp_path / "ref.fa")
+    write_fasta(ref, pangenome(3, 60_000, 0.05, seed=13))
+    want = _card_map(tmp_path, ref, "one", [cuda])
+    graphs.reset_counts()
+    got = _card_map(tmp_path, ref, "two", [cuda, cuda])
+    assert want.count("\n") > 3 and got == want
+    calls = {k: graphs.REPLAYS.get(k, 0) for k in ("l1_step", "l2_step")}
+    assert calls["l1_step"] % 2 == 0 and calls["l2_step"] % 2 == 0
+    # the second block of each call replays the graph the first captured
+    assert calls["l1_step"] >= 2
+    assert all(graphs.CAPTURES.get(k, 0) <= calls[k] // 2 for k in calls)
+
+
+def test_clear_returns_the_cache_to_the_driver(cuda, tmp_path, fresh_graphs):
+    """After a map the device's cache holds its table set and graph pool;
+    graphs.clear returns both, and the device's reserved memory falls
+    back to what it was before the map."""
+    import gc
+    graphs = fresh_graphs
+    ref = str(tmp_path / "ref.fa")
+    write_fasta(ref, pangenome(3, 60_000, 0.05, seed=13))
+    _card_map(tmp_path, ref, "warm", [cuda])     # lazy per-device set-up
+    graphs.clear(cuda)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(cuda)
+    _card_map(tmp_path, ref, "map", [cuda])
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved(cuda) > before
+    assert graphs._cache(cuda).graphs
+    graphs.clear(cuda)
+    assert graphs._device(cuda) not in graphs._CACHES
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved(cuda) <= before

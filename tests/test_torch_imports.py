@@ -51,7 +51,8 @@ def test_port_imports_with_jax_blocked():
             "mashmap_tpu_torch.align.cli, mashmap_tpu_torch.native, "
             "mashmap_tpu_torch.progress, mashmap_tpu_torch.parallel.mesh, "
             "mashmap_tpu_torch.parallel.sharded_index, "
-            "mashmap_tpu_torch.parallel.distributed; "
+            "mashmap_tpu_torch.parallel.distributed, "
+            "mashmap_tpu_torch.kernels.graphs; "
             "assert not any(m == 'jax' or m.startswith('jax.') "
             "for m in sys.modules if sys.modules[m] is not None)")
     env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep

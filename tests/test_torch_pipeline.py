@@ -157,8 +157,9 @@ def test_pipelined_host_routes_and_gathers(tmp_path, monkeypatch):
     assert out.getvalue() == want
     assert st["host_frags"] > 0 and st["host_l2"] > 0, st
     assert {"_collect_l1", "_collect_l2"} <= set(gathers), gathers
-    assert set(m.phase_s) == {"l1-dispatch", "l1-wait", "l1-fetch",
-                              "l2-dispatch", "l2-wait", "l2-fetch", "post"}
+    assert set(m.phase_s) == {"l1-tables", "l1-dispatch", "l1-wait",
+                              "l1-fetch", "l2-dispatch", "l2-wait",
+                              "l2-fetch", "post"}
 
 
 def test_meter_credits_every_base_once(pair, monkeypatch):
