@@ -109,7 +109,25 @@ Phases, in order; any failure propagates and exits non-zero:
    and the coverage gate; [small-pi78]: the small pangenome at --pi 78,
    card (the lifted cap: the device route) == CPU (the default cap: the
    host route);
-12. [flagship]: the human-scale path at 62 Mbp: scripts/gen_flagship_data.py
+12. [flagship-ont]: BASELINE.json's configuration 3 (ONT reads against
+   one reference, -f map) at MashMap's default --pi 85:
+   scripts/gen_flagship_data.py --scale 0.02 writes the [flagship] pair
+   (the reference: 24 chromosomes, 62 Mbp) into data/generated/, and
+   scripts/flagship_torch.py's write_reads FLAGSHIP_ONT_READS reads of it
+   (10-30 kb, 5% divergence, half from the minus strand, each read's
+   origin in its name); build_or_load_index (the index resident) and
+   map_files with it on "cuda", -J pinned to FLAGSHIP_ONT_S (the auto s
+   of the 3.08 Gbp reference at --pi 85), its cutoff table made by the
+   [configs] child process from phase 3 on; theta.cu's launches counted
+   (> 0, none of theta_wide.cu); the PAF's sha256 must equal
+   FLAGSHIP_ONT_SHA256 (the JAX package's PAF on the same files) and at
+   least flagship_torch.MIN_TRUTH of the reads must have a row on their
+   origin chromosome and strand that overlaps their origin; build s, map
+   s, query Mbp/s, path_stats and peak device memory allocated and
+   reserved; then theta.cu on the build's block rows timed, and on the
+   first FLAGSHIP_CHECK_ROWS timed beside its plain version and its bound
+   and equal to the plain version. The reads and the PAF are removed;
+13. [flagship]: the human-scale path at 62 Mbp: scripts/gen_flagship_data.py
    --scale 0.02 writes a reference of 24 chromosomes and its assembly
    (2.5% SNPs, whole contigs) into data/generated/; build_or_load_index
    with --saveIndex, then map_files with --loadIndex of that npz at
@@ -125,13 +143,14 @@ Phases, in order; any failure propagates and exits non-zero:
    while the next group's device phases run), every index array equal to
    the one-group build's, each group's main-thread and worker seconds and
    the build's wall. The pair and the npz are removed at the end;
-13. [configs]: BASELINE.json's other mapping configurations through
+14. [configs]: BASELINE.json's other mapping configurations through
    bench_extra_torch.py's functions on "cuda", at bench_extra.py's sizes
-   (its data and its cutoff tables at s = 20, 60, 120, 200 and 298 made
-   by a child process from phase 3 on): -f one-to-one at --pi 95 (the
-   coverage gate), 200 ONT-shaped reads against a 5 Mbp reference (the
-   mapped fraction), the --dense/-J sweep at --pi 90 (s = 298, 60, 120,
-   200; the ANI error of each) and two reference files (--rl); each run
+   (its data and its cutoff tables at s = 20, 60, 120, 200 and 298, and
+   [flagship-ont]'s at 310, made by a child process from phase 3 on):
+   -f one-to-one at --pi 95 (the coverage gate), 200 ONT-shaped reads
+   against a 5 Mbp reference (the mapped fraction), the --dense/-J sweep
+   at --pi 90 (s = 298, 60, 120, 200; the ANI error of each) and two
+   reference files (--rl); each run
    is one map_files call and must pass bench_extra_torch.check (its
    PAF's sha256 == EXTRA_SHA256, the JAX package's; bench_extra.py's
    gates), each step's theta.cu launches are counted (> 0, none of
@@ -146,7 +165,8 @@ and read just after; a path that launched none fails the run. The line
 before the last is the kernels' JSON record (theta's "launches" are the
 main path's, the wide kernel's those of [wide-s] (a); "launches_by_path"
 those of every path; theta's "configs" the [configs] rows' times and
-bounds); the last line is {"ok": true, "device": {...}}.
+bounds, "flagship_ont" [flagship-ont]'s); the last line is
+{"ok": true, "device": {...}}.
 The cutoff tables go to a fresh $XDG_CACHE_HOME that the run removes,
 so every cold number is cold. Without a CUDA device, or without the
 rest of the repository beside it, the script fails before printing
@@ -211,6 +231,27 @@ FLAGSHIP_S002_SHA256 = ("d7956da3ea56ac49541adf7ca1c1c723"
                         "15219053711c2baa5d74f376b56a1920")
 # theta.cu against its plain version on this many of the build's rows
 FLAGSHIP_CHECK_ROWS = 1024
+# [flagship-ont]: this many ONT-shaped reads (scripts/flagship_torch.py's
+# write_reads, this seed: 8.07 Mbp) of the [flagship] reference, mapped
+# at MashMap's default --pi 85 -f map with -J pinned to the auto s of the
+# 3.08 Gbp reference at --pi 85 (310, through the int32 wrap; the
+# full-scale run's theta.cu template and L2 widths)
+FLAGSHIP_ONT_READS = 400
+FLAGSHIP_ONT_SEED = 31
+FLAGSHIP_ONT_S = 310
+PI_ONT = 0.85
+# sha256 of the JAX package's PAF on those files, on the CPU:
+#   python scripts/gen_flagship_data.py --scale 0.02
+#   python -c "import sys; sys.path.insert(0, 'scripts');
+#       import flagship_torch as f; f.write_reads(
+#       'data/generated/hg3g_s0.02.fa', 400, 31,
+#       'data/generated/hg3g_s0.02_ont400_seed31.fa')"
+#   JAX_PLATFORMS=cpu python -m mashmap_tpu.cli -r hg3g_s0.02.fa \
+#       -q hg3g_s0.02_ont400_seed31.fa --pi 85 -J 310 -o jax.paf
+# (438 rows, every read on its origin chromosome and strand; the CPU
+# run takes about 25 minutes)
+FLAGSHIP_ONT_SHA256 = ("9dba7774a8eb1deaba1436cdcc6738af"
+                       "52f33d325a3071cee70f0e3fd0215fc3")
 # [pipeline]: the small pangenome (120 fragments) mapped this many
 # fragments a batch (15 batches, queries spanning them), and the
 # [flagship] reference (62.47 M positions) built with this rank limit
@@ -1920,6 +1961,164 @@ def l2_widths_line(tag, p, m):
     return cut
 
 
+def flagship_pair():
+    """scripts/gen_flagship_data.py's pair at FLAGSHIP_SCALE in
+    data/generated/, written unless both files are there: (reference,
+    assembly)."""
+    ref = os.path.join(DATA, f"hg3g_s{FLAGSHIP_SCALE:g}.fa")
+    asm = os.path.join(DATA, f"hg3g_asm_s{FLAGSHIP_SCALE:g}.fa")
+    if not (os.path.exists(ref) and os.path.exists(asm)):
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable,
+                        os.path.join(HERE, "scripts", "gen_flagship_data.py"),
+                        "--scale", f"{FLAGSHIP_SCALE:g}"], check=True,
+                       capture_output=True)
+        print(f"[flagship] generated {os.path.getsize(ref)} + "
+              f"{os.path.getsize(asm)} bytes in {time.perf_counter() - t0} s")
+    return ref, asm
+
+
+def flagship_ont_phase(device):
+    """[flagship-ont]: FLAGSHIP_ONT_READS ONT-shaped reads of the
+    [flagship] reference through the entry points a user calls,
+    build_or_load_index (the index resident) and map_files with it, at
+    --pi 85 -f map and -J FLAGSHIP_ONT_S on the card; theta launches
+    counted from 0 before the build and read after the map. Gates: the
+    PAF's sha256 == FLAGSHIP_ONT_SHA256 (the JAX package's PAF on the
+    same files), the truth gate (flagship_torch.truth_shares: at least
+    MIN_TRUTH of the reads have a row on their origin chromosome and
+    strand overlapping their origin), theta.cu launched and theta_wide.cu
+    not. Then theta.cu on the build's block rows, timed, and on the
+    first FLAGSHIP_CHECK_ROWS timed beside its plain version and its
+    bound, and equal to it. Returns (theta.cu's launches, the record)."""
+    import torch
+    import flagship_torch as ft
+    from mashmap_tpu_torch import stats
+    from mashmap_tpu_torch.api import build_or_load_index, map_files
+    from mashmap_tpu_torch.io import for_each_seq_in_file
+    from mashmap_tpu_torch.kernels import graphs, theta
+    from mashmap_tpu_torch.params import FIXED, Parameters
+    t_phase = time.perf_counter()
+    # the earlier phases' graph pools go, so the peaks reserved are this
+    # phase's own
+    graphs.clear(device)
+    ref, _ = flagship_pair()
+    reads = ft.reads_path(ref, FLAGSHIP_ONT_READS, FLAGSHIP_ONT_SEED)
+    out = os.path.join(DATA, "smoke_flagship_ont.paf")
+    try:
+        t0 = time.perf_counter()
+        q_bp = ft.write_reads(ref, FLAGSHIP_ONT_READS, FLAGSHIP_ONT_SEED,
+                              reads)
+        print(f"[flagship-ont] {FLAGSHIP_ONT_READS} reads, {q_bp} bp "
+              f"(seed {FLAGSHIP_ONT_SEED}) written in "
+              f"{time.perf_counter() - t0} s")
+        p = Parameters(ref_sequences=[ref], query_sequences=[reads],
+                       out_file_name=out, percentage_identity=PI_ONT,
+                       sketch_size=FLAGSHIP_ONT_S, no_progress=True)
+        p.finalize()
+        table = stats.cutoffs_cache_path(p.sketch_size, p.kmer_size,
+                                         p.ANIDiff, p.ANIDiffConf,
+                                         FIXED.ss_table_max)
+        on_disk = os.path.exists(table)
+        ft.peak_device_bytes(device, reset=True)
+        theta.LAUNCHES = theta.WIDE_LAUNCHES = 0
+        t0 = time.perf_counter()
+        idx = build_or_load_index(p, device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        build_peaks = ft.peak_device_bytes(device, reset=True)
+        n_minmers, n_rows = len(idx.uniq_hashes), len(idx.mi_rank)
+        mappers = []
+        with grab_mappers(mappers):
+            map_files(p, index=idx, device=device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        map_peaks = ft.peak_device_bytes(device, reset=True)
+        launches = theta.LAUNCHES
+        del idx
+        graphs.clear(device)
+        with open(out) as fh:
+            paf = fh.read().splitlines()
+        names = [n for n, _ in for_each_seq_in_file(reads)]
+        truth, mapped = ft.truth_shares(names, paf)
+        print(f"[flagship-ont] k={p.kmer_size} w={p.seg_length} "
+              f"s={p.sketch_size} pi={p.percentage_identity} "
+              f"filter_mode={p.filter_mode}: {n_minmers} unique "
+              f"minmers, {n_rows} interval rows; build_s "
+              f"{t1 - t0} map_s {t2 - t1} query_bp={q_bp} "
+              f"query_mbp_per_s={q_bp / 1e6 / (t2 - t1)} "
+              f"paf_rows={len(paf)} path_stats={mappers[0].path_stats} "
+              f"cutoff table on disk before the map (the child process): "
+              f"{on_disk}; theta launches: theta.cu {launches}, "
+              f"theta_wide.cu {theta.WIDE_LAUNCHES}; peak device bytes "
+              f"build={build_peaks} map={map_peaks}")
+        print(f"[flagship-ont] truth {truth} (gate {ft.MIN_TRUTH}), "
+              f"mapped {mapped} of {len(names)} reads")
+        got = sha256(out)
+        if got != FLAGSHIP_ONT_SHA256:
+            raise AssertionError(f"[flagship-ont] PAF sha256 {got} != the "
+                                 f"JAX package's {FLAGSHIP_ONT_SHA256}")
+        print("[flagship-ont] PAF sha256 == FLAGSHIP_ONT_SHA256 (the JAX "
+              "package's PAF)")
+        if truth < ft.MIN_TRUTH:
+            raise AssertionError(f"[flagship-ont] truth gate failed: "
+                                 f"{truth} < {ft.MIN_TRUTH}")
+        if launches <= 0 or theta.WIDE_LAUNCHES != 0:
+            raise AssertionError(f"[flagship-ont] launched theta.cu "
+                                 f"{launches} times and theta_wide.cu "
+                                 f"{theta.WIDE_LAUNCHES}")
+        rec = flagship_ont_theta(p, device)
+        rec.update(build_s=t1 - t0, map_s=t2 - t1,
+                   query_mbp_per_s=q_bp / 1e6 / (t2 - t1), truth=truth)
+    finally:
+        for path in (reads, out):
+            if os.path.exists(path):
+                os.remove(path)
+    print(f"[flagship-ont] {time.perf_counter() - t_phase} s")
+    return launches, rec
+
+
+def flagship_ont_theta(p, device):
+    """theta.cu on the block rows of the [flagship-ont] build: the
+    kernel's median ms over all of them (in the build's launches) and
+    their byte bound; on the first FLAGSHIP_CHECK_ROWS the kernel held
+    to its plain version (flagship_torch.theta_check: both timed, the
+    bound from their bytes and the int32 operations they need). Returns
+    the record."""
+    import torch
+    import flagship_torch as ft
+    from mashmap_tpu_torch.kernels import theta
+    cur, nxt = main_path_blocks(p, device)
+    C, s_b = cur.shape
+    s = p.sketch_size
+    step = theta.theta_rows_per_launch(device, s, s_b)
+    ms = time_ms(lambda: [theta.theta_chunk(cur[c:c + step],
+                                            nxt[c:c + step], s, s_b)
+                          for c in range(0, C, step)], 5)
+    bytes_ms = 1e3 * 3 * C * s_b * 4 / HBM_BYTES_PER_S
+    rows = {"cur": cur[:FLAGSHIP_CHECK_ROWS].contiguous(),
+            "nxt": nxt[:FLAGSHIP_CHECK_ROWS].contiguous(), "s": s,
+            "s_b": s_b}
+    del cur, nxt
+    torch.cuda.empty_cache()
+    check = ft.theta_check(device, rows)
+    print(f"[flagship-ont] theta.cu on the build's block rows C={C} "
+          f"S_B={s_b} s={s} in {-(-C // step)} launch(es): {ms} ms (byte "
+          f"bound {bytes_ms} ms); on the first {check['rows']}: "
+          f"{check['ms']} ms, plain {check['plain_ms']} ms, bound "
+          f"{check['bound_ms']} ms ({check['bound_by']}), "
+          f"max_abs_err={check['max_abs_err']}")
+    if check["max_abs_err"] != 0:
+        raise AssertionError("[flagship-ont] theta.cu disagrees with its "
+                             "plain version")
+    return {"path": "flagship-ont", "C": C, "S_B": s_b, "s": s, "ms": ms,
+            "bytes_bound_ms": bytes_ms, "check_rows": check["rows"],
+            "check_ms": check["ms"], "check_plain_ms": check["plain_ms"],
+            "check_bound_ms": check["bound_ms"],
+            "check_bound_by": check["bound_by"],
+            "max_abs_err": check["max_abs_err"]}
+
+
 def flagship_phase(device):
     """[flagship]: the human-scale path at 62 Mbp through the entry
     points a user calls: build_or_load_index with --saveIndex, then
@@ -1933,18 +2132,10 @@ def flagship_phase(device):
     from mashmap_tpu_torch.io import for_each_seq_in_file
     from mashmap_tpu_torch.kernels import theta
     from mashmap_tpu_torch.params import Parameters
-    t0 = time.perf_counter()
-    subprocess.run([sys.executable,
-                    os.path.join(HERE, "scripts", "gen_flagship_data.py"),
-                    "--scale", f"{FLAGSHIP_SCALE:g}"], check=True,
-                   capture_output=True)
-    ref = os.path.join(DATA, f"hg3g_s{FLAGSHIP_SCALE:g}.fa")
-    asm = os.path.join(DATA, f"hg3g_asm_s{FLAGSHIP_SCALE:g}.fa")
+    ref, asm = flagship_pair()
     npz = os.path.join(DATA, "smoke_flagship.idx.npz")
     out = os.path.join(DATA, "smoke_flagship.paf")
     try:
-        print(f"[flagship] generated {os.path.getsize(ref)} + "
-              f"{os.path.getsize(asm)} bytes in {time.perf_counter() - t0} s")
         lens = {n: len(q) for n, q in for_each_seq_in_file(asm)}
         q_bp = sum(lens.values())
         peak_bytes(device)
@@ -2056,17 +2247,19 @@ def start_child(call):
 
 def configs_prep_job():
     """Write bench_extra_torch's data at bench_extra.py's sizes, then
-    compute the cutoff tables of [configs]' one-to-one run and dense
-    sweep into $XDG_CACHE_HOME (the ONT and --rl runs share s = 130 with
-    the main path, which computes that table cold); print the seconds of
-    each step."""
+    compute the cutoff tables of [flagship-ont] (s = FLAGSHIP_ONT_S) and
+    of [configs]' one-to-one run and dense sweep into $XDG_CACHE_HOME
+    (the ONT and --rl runs share s = 130 with the main path, which
+    computes that table cold); print the seconds of each step."""
     import bench_extra_torch as bext
     from mashmap_tpu_torch import stats
-    from mashmap_tpu_torch.params import FIXED
+    from mashmap_tpu_torch.params import FIXED, Parameters
     t0 = time.perf_counter()
     data = bext.make_data(DATA, bext.FULL)
     print(f"data {time.perf_counter() - t0}", flush=True)
-    for p in [bext.oto_params(data, os.devnull)] + [
+    ont = Parameters(reference_size=1, percentage_identity=PI_ONT,
+                     sketch_size=FLAGSHIP_ONT_S)
+    for p in [ont, bext.oto_params(data, os.devnull)] + [
             bext.dense_params(data, os.devnull, s) for s in bext.SWEEP]:
         p.finalize()
         t0 = time.perf_counter()
@@ -2244,7 +2437,7 @@ def run():
 
 
 def phases(device, fa_main, fa_small, table_job, prep_job, t_start):
-    """Phases 3 to 13 and the last two lines."""
+    """Phases 3 to 14 and the last two lines."""
     import torch
     from mashmap_tpu_torch.io import for_each_seq_in_file
     # 3. theta against its plain version, then times on the main path's
@@ -2295,10 +2488,14 @@ def phases(device, fa_main, fa_small, table_job, prep_job, t_start):
         fa_small, device, PI_WIDE, "[small-pi78]",
         dict(l1_postings_cap=WIDE_P_CAP))[1]
 
-    # 12. the human-scale path at 62 Mbp, held to the JAX package's PAF
+    # 12. ONT-shaped reads of the 62 Mbp reference at --pi 85, -J 310,
+    # held to the JAX package's PAF
+    by_path["flagship-ont"], ont_rec = flagship_ont_phase(device)
+
+    # 13. the human-scale path at 62 Mbp, held to the JAX package's PAF
     by_path["flagship"], by_path["pipeline-groups"] = flagship_phase(device)
 
-    # 13. bench_extra_torch's configurations, held to the JAX package's PAFs
+    # 14. bench_extra_torch's configurations, held to the JAX package's PAFs
     config_by_path, config_recs = configs_phase(device, prep_job)
     by_path.update(config_by_path)
 
@@ -2306,7 +2503,8 @@ def phases(device, fa_main, fa_small, table_job, prep_job, t_start):
            "source": rec.pop("source"), "replaces": rec.pop("replaces"),
            "launches": launches,
            "max_abs_err": max(err, rec.pop("max_abs_err")), **rec,
-           "launches_by_path": by_path, "configs": config_recs}
+           "launches_by_path": by_path, "configs": config_recs,
+           "flagship_ont": ont_rec}
     wide_rec = {"name": wide_rec.pop("name"), "route": wide_rec.pop("route"),
                 "source": wide_rec.pop("source"),
                 "replaces": wide_rec.pop("replaces"),

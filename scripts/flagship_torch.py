@@ -21,9 +21,33 @@ wrap of the reference size). Phases, each printing one JSON line:
    ``Mapper`` holding the index (the second run is the steady state of
    a mapping service); both PAFs must equal the --loadIndex PAF.
 
+Reads mode (``--reads N``, BASELINE.json's configuration 3, "ONT
+long-read set vs single reference, -f map", at MashMap's defaults:
+``--pi`` 0.85 unless given, auto s = 310 at full scale): N ONT-shaped
+reads (``write_reads``: 10-30 kb, 5% divergence, half of them from the
+minus strand, each read's origin in its name) drawn from the reference
+with READS_SEED into ``<reference>_ont<N>_seed<S>.fa`` beside it, then
+phases
+
+1. reads: their count, bases and the seconds to write them (skipped
+   when the file exists);
+2. build: ``build_or_load_index`` with the index kept resident (no
+   --saveIndex), theta.cu checked against its plain version on the first
+   THETA_CHECK_ROWS block rows of the build's first theta call, timed
+   there beside its bound;
+3. cutoff table: ``stats.sketch_cutoffs`` at the build's s, and whether
+   it was on disk already (cold when it was not);
+4. map: ``map_files`` with that index (-f map, every other parameter at
+   its default), path_stats and the host route's seconds a fragment,
+   then the truth gate: at least MIN_TRUTH of the reads have a PAF row
+   on their origin chromosome and strand whose reference interval
+   overlaps the origin's.
+
 Usage:
     python3 scripts/flagship_torch.py [--build-only | --map-only]
         [--map-twice] [--subset-gbp X] [--device cpu]
+    python3 scripts/flagship_torch.py --reads N [--pi 0.85] [-J S]
+        [--device cpu]
 
 Without ``--map-only`` the build runs when ``--build-only`` is given or
 no valid npz exists; without ``--build-only`` the map runs. Paths follow
@@ -39,6 +63,7 @@ import copy
 import hashlib
 import json
 import logging
+import mmap
 import os
 import resource
 import subprocess
@@ -49,6 +74,7 @@ import zipfile
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 sys.path.insert(0, os.path.join(HERE, "scripts"))
+sys.path.insert(0, os.path.join(HERE, "tests"))
 
 DATA = os.path.join(HERE, "data", "generated")
 PI = 0.95
@@ -64,6 +90,18 @@ JAX_BUILD = {
     "hg3g_s0.02.fa": {"k": 19, "w": 5000, "s": 20, "minmers": 309_688,
                       "interval_rows": 494_450},
 }
+# reads mode: ONT-shaped reads as bench_extra_torch.py makes them,
+# lengths uniform in [10 kb, 30 kb) and 5% divergence through
+# tests/genomes.py's mutate (10% of it indels), at MashMap's default
+# identity; the truth gate's least share
+READ_LEN = (10_000, 30_000)
+READ_DIVERGENCE = 0.05
+READS_SEED = 85
+PI_READS = 0.85
+MIN_TRUTH = 0.95
+# theta.cu against its plain version on this many rows of the build's
+# first theta call
+THETA_CHECK_ROWS = 1024
 
 
 def paths():
@@ -90,14 +128,17 @@ def card(device):
 
 
 def peak_device_bytes(device, reset=False):
-    """torch.cuda.max_memory_allocated since the last reset (None on the
-    CPU); with reset, starts a new window."""
+    """{"allocated", "reserved"}: torch.cuda.max_memory_allocated and
+    max_memory_reserved since the last reset (None on the CPU); with
+    reset, the cache's free blocks are released and a new window starts."""
     import torch
     if device.type != "cuda":
         return None
     torch.cuda.synchronize(device)
-    peak = torch.cuda.max_memory_allocated(device)
+    peak = {"allocated": torch.cuda.max_memory_allocated(device),
+            "reserved": torch.cuda.max_memory_reserved(device)}
     if reset:
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
     return peak
 
@@ -129,14 +170,18 @@ def npz_ok(path):
 
 
 @contextlib.contextmanager
-def timed_theta(device, calls):
+def timed_theta(device, calls, first=None):
     """Each theta_chunk call of the build appends (rows, s, ms) to calls:
-    on the card, CUDA events around the call."""
+    on the card, CUDA events around the call. With ``first`` (a dict),
+    the first call's first THETA_CHECK_ROWS rows are kept there."""
     import torch
     from mashmap_tpu_torch.kernels import winnow
     chunk = winnow.theta_chunk
 
     def timed(cur, nxt, s, s_b):
+        if first is not None and not first:
+            first.update(cur=cur[:THETA_CHECK_ROWS].clone(),
+                         nxt=nxt[:THETA_CHECK_ROWS].clone(), s=s, s_b=s_b)
         if device.type == "cuda":
             a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             a.record()
@@ -157,6 +202,46 @@ def timed_theta(device, calls):
         winnow.theta_chunk = chunk
 
 
+def theta_check(device, rows):
+    """The kernel that theta_chunk launches for these rows against its
+    plain version, theta_chunk_ref: {rows, s, S_B, kernel ms (median of
+    5), plain ms (one call), max_abs_err, bound ms and what bounds it
+    (chip_smoke.theta_bound_ms: these rows' bytes, and the int32
+    operations their inserts and changed offsets need)}. On the CPU
+    both are the plain version, timed by the host clock."""
+    import torch
+    import chip_smoke
+    from mashmap_tpu_torch.kernels import theta
+    cur, nxt, s, s_b = rows["cur"], rows["nxt"], rows["s"], rows["s_b"]
+    out = {}
+
+    def clock(fn, reps):
+        if device.type == "cuda":
+            return chip_smoke.time_ms(fn, reps, warmup=int(reps > 1))
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / reps
+    ms = clock(lambda: out.update(got=theta.theta_chunk(cur, nxt, s, s_b)),
+               5)
+    plain_ms = clock(
+        lambda: out.update(want=theta.theta_chunk_ref(cur, nxt, s, s_b)), 1)
+    err = int((out["got"].long() - out["want"].long()).abs().max())
+    counts = chip_smoke.theta_schedule_counts(
+        cur.cpu().numpy(), nxt.cpu().numpy(), s, theta.SEG_K)
+    # stdout carries only the JSON lines; the bound's own line goes to
+    # stderr
+    with contextlib.redirect_stdout(sys.stderr):
+        bound_ms, bound_by = chip_smoke.theta_bound_ms(cur.shape[0], s_b, s,
+                                                       counts)
+    del out
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"rows": int(cur.shape[0]), "S_B": s_b, "s": s, "ms": ms,
+            "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def group_seconds():
     """{first contig of a group: [main thread s, worker s]} of the last
     index build: the device part of each contig group runs on the main
@@ -170,14 +255,18 @@ def group_seconds():
             for gid, ph in builder.GROUP_PHASE_S.items()}
 
 
-def build_phase(ref, idx_path, device, smi):
+def build_phase(ref, idx_path, device, smi, pi=PI, sketch_size=None):
+    """build_or_load_index on ``ref`` at ``pi`` (and -J ``sketch_size``
+    when given), then, with an ``idx_path``, the save and the npz's zip
+    check; without one the index stays resident and theta.cu is checked
+    on the first call's rows (theta_check). Returns (gates held, index)."""
     import torch
     from mashmap_tpu_torch.api import build_or_load_index
     from mashmap_tpu_torch.kernels import theta
     from mashmap_tpu_torch.params import Parameters
     from mashmap_tpu_torch.native import native_available
-    p = Parameters(ref_sequences=[ref], percentage_identity=PI,
-                   no_progress=True).finalize()
+    p = Parameters(ref_sequences=[ref], percentage_identity=pi,
+                   sketch_size=sketch_size, no_progress=True).finalize()
     # the theta kernel's nvcc build and the native reader's g++ build
     # happen once per checkout, at first use: outside the build's time
     t0 = time.perf_counter()
@@ -190,9 +279,11 @@ def build_phase(ref, idx_path, device, smi):
     first_use_s = time.perf_counter() - t0
     peak_device_bytes(device, reset=True)
     theta.LAUNCHES = theta.WIDE_LAUNCHES = 0
-    calls = []
+    # on the card, a resident build's kernel is checked on its own rows
+    resident_card = idx_path is None and device.type == "cuda"
+    calls, first = [], ({} if resident_card else None)
     t0 = time.perf_counter()
-    with timed_theta(device, calls):
+    with timed_theta(device, calls, first):
         idx = build_or_load_index(p, device)
     groups = group_seconds()
     if device.type == "cuda":
@@ -200,31 +291,63 @@ def build_phase(ref, idx_path, device, smi):
     build_s = time.perf_counter() - t0
     launches = {"theta.cu": theta.LAUNCHES,
                 "theta_wide.cu": theta.WIDE_LAUNCHES}
-    t0 = time.perf_counter()
-    idx.save(idx_path)
-    save_s = time.perf_counter() - t0
     got = {"k": idx.kmer_size, "w": idx.window_size, "s": idx.sketch_size,
            "minmers": int(len(idx.uniq_hashes)),
            "interval_rows": int(len(idx.mi_rank))}
-    want = JAX_BUILD.get(os.path.basename(ref))
     rec = {"phase": "build", "card": smi, "device": str(device),
            "reference": ref, "reference_bytes": p.reference_size,
-           "first_use_builds_s": first_use_s,
-           "build_s": build_s, "save_s": save_s,
-           "npz_bytes": os.path.getsize(idx_path),
-           "npz_ok": npz_ok(idx_path), **got,
-           "theta_launches": launches,
-           "theta_calls_rows_s_ms": calls,
-           "groups_main_worker_s": groups,
-           "main_s": sum(m for m, _ in groups.values()),
-           "worker_s": sum(w for _, w in groups.values()),
-           "peak_device_bytes": peak_device_bytes(device),
-           "peak_host_rss_bytes": peak_rss_bytes()}
-    if want is not None:
+           "pi": pi, "first_use_builds_s": first_use_s, "build_s": build_s}
+    ok = True
+    if idx_path is not None:
+        t0 = time.perf_counter()
+        idx.save(idx_path)
+        rec.update(save_s=time.perf_counter() - t0,
+                   npz_bytes=os.path.getsize(idx_path),
+                   npz_ok=npz_ok(idx_path))
+        ok = rec["npz_ok"]
+    rec.update(got)
+    rec.update({"theta_launches": launches,
+                "theta_calls_rows_s_ms": calls,
+                **theta_totals(calls, idx.window_size - idx.kmer_size + 1),
+                "groups_main_worker_s": groups,
+                "main_s": sum(m for m, _ in groups.values()),
+                "worker_s": sum(w for _, w in groups.values()),
+                "index_host_bytes": index_bytes(idx),
+                "peak_device_bytes": peak_device_bytes(device),
+                "peak_host_rss_bytes": peak_rss_bytes()})
+    want = JAX_BUILD.get(os.path.basename(ref))
+    if want is not None and pi == PI and sketch_size is None:
         rec["jax_build"] = want
         rec["jax_build_equal"] = got == want
+        ok = ok and rec["jax_build_equal"]
+    if resident_card:
+        # the build launched the kernel of its s and not the other one
+        used, other = (("theta.cu", "theta_wide.cu")
+                       if idx.sketch_size <= theta.S_MAX
+                       else ("theta_wide.cu", "theta.cu"))
+        ok = ok and launches[used] > 0 and launches[other] == 0
+        rec["theta_check"] = theta_check(device, first)
+        ok = ok and rec["theta_check"]["max_abs_err"] == 0
     emit(rec)
-    return rec["npz_ok"] and rec.get("jax_build_equal", True)
+    return ok, idx
+
+
+def theta_totals(calls, s_b):
+    """The build's theta calls in all: rows, ms, and the byte bound of
+    those rows (cur and nxt read once, theta written once, over the
+    card's memory rate, chip_smoke.HBM_BYTES_PER_S)."""
+    from chip_smoke import HBM_BYTES_PER_S
+    rows = sum(c[0] for c in calls)
+    return {"theta_rows": rows, "theta_ms": sum(c[2] for c in calls),
+            "theta_bytes_bound_ms": 1e3 * 3 * rows * s_b * 4
+            / HBM_BYTES_PER_S}
+
+
+def index_bytes(idx):
+    """Bytes of the index's arrays on the host."""
+    import numpy as np
+    return sum(v.nbytes for v in vars(idx).values()
+               if isinstance(v, np.ndarray))
 
 
 def write_subset(asm, gbp):
@@ -246,6 +369,199 @@ def write_subset(asm, gbp):
             dst.write(line)
     os.replace(out + ".tmp", out)
     return out, n_ctg, n_bp
+
+
+def fasta_layout(path):
+    """[(name, byte offset of its first base, bases, bases a line)] of
+    each record of a FASTA file whose lines are as long as the record's
+    first, but the last (gen_flagship_data.py's layout), found by
+    scanning a memory map for headers, so the file is never read whole."""
+    recs = []
+    with open(path, "rb") as fh, \
+            mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ) as mm:
+        at = mm.find(b">")
+        while at >= 0:
+            start = mm.find(b"\n", at) + 1
+            name = mm[at + 1:start - 1].split()[0].decode()
+            nxt = mm.find(b"\n>", start - 1)
+            end = nxt + 1 if nxt >= 0 else len(mm)
+            n_bytes = end - start
+            width = (mm.find(b"\n", start) - start) if n_bytes else 1
+            if n_bytes and mm[end - 1:end] != b"\n":
+                raise ValueError(f"{path}: record {name} ends without a "
+                                 f"newline")
+            full, rem = divmod(n_bytes, width + 1)
+            recs.append((name, start, full * width + max(rem - 1, 0),
+                         width))
+            at = nxt + 1 if nxt >= 0 else -1
+    return recs
+
+
+def window(mm, rec, a, b):
+    """Bases [a, b) of the fasta_layout record ``rec`` from the memory
+    map (or bytes) ``mm`` of its file."""
+    _, off, _, width = rec
+    lo, hi = off + a + a // width, off + b - 1 + (b - 1) // width
+    return mm[lo:hi + 1].replace(b"\n", b"").decode()
+
+
+def reads_path(ref, n, seed):
+    """Where write_reads puts N reads of ``ref`` drawn with ``seed``:
+    beside the reference."""
+    stem = ref[:-3] if ref.endswith(".fa") else ref
+    return f"{stem}_ont{n}_seed{seed}.fa"
+
+
+def write_reads(ref, n, seed, out):
+    """Write ``n`` ONT-shaped reads of the reference ``ref`` to ``out``:
+    each a window of READ_LEN bases (uniform) at a start uniform over the
+    chromosomes' bases where the window fits (never across a
+    chromosome's end), mutated to READ_DIVERGENCE by tests/genomes.py's
+    mutate with a seed of its own, and for n // 2 of them (a random
+    half) reverse-complemented. Read i is named
+    ``read<i>:<chromosome>:<start>-<end>:<strand>`` (0-based, end
+    exclusive, the reference interval it came from). Deterministic from
+    ``seed``; the windows are sliced from a memory map of ``ref``.
+    Returns the reads' bases."""
+    import numpy as np
+    from genomes import mutate, revcomp
+    layout = fasta_layout(ref)
+    lens = np.array([r[2] for r in layout], np.int64)
+    rng = np.random.default_rng(seed)
+    minus = np.zeros(n, bool)
+    minus[rng.permutation(n)[:n // 2]] = True
+    n_bp = 0
+    with open(ref, "rb") as fh, \
+            mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ) as mm, \
+            open(out + ".tmp", "w") as dst:
+        for i in range(n):
+            m = int(rng.integers(*READ_LEN))
+            room = np.maximum(lens - m + 1, 0)
+            cum = np.cumsum(room)
+            if cum[-1] == 0:
+                raise ValueError(f"{ref}: no chromosome holds {m} bases")
+            u = int(rng.integers(0, cum[-1]))
+            c = int(np.searchsorted(cum, u, side="right"))
+            a = u - int(cum[c] - room[c])
+            name = layout[c][0]
+            seq = mutate(window(mm, layout[c], a, a + m), READ_DIVERGENCE,
+                         seed=int(rng.integers(1 << 31)))
+            strand = "-" if minus[i] else "+"
+            if minus[i]:
+                seq = revcomp(seq)
+            dst.write(f">read{i}:{name}:{a}-{a + m}:{strand}\n")
+            dst.write("".join(seq[j:j + 80] + "\n"
+                              for j in range(0, len(seq), 80)))
+            n_bp += len(seq)
+    os.replace(out + ".tmp", out)
+    return n_bp
+
+
+def read_origin(name):
+    """(chromosome, start, end, strand) that write_reads put in a read's
+    name."""
+    _, rest = name.split(":", 1)
+    chrom, span, strand = rest.rsplit(":", 2)
+    start, end = span.split("-")
+    return chrom, int(start), int(end), strand
+
+
+def truth_shares(names, paf_lines):
+    """(truth, mapped): the shares of the reads ``names`` with a PAF row
+    on their origin chromosome and strand whose reference interval
+    overlaps the origin interval, and with any PAF row."""
+    hit, mapped = set(), set()
+    for line in paf_lines:
+        f = line.split("\t")
+        mapped.add(f[0])
+        chrom, start, end, strand = read_origin(f[0])
+        if (f[5], f[4]) == (chrom, strand) and int(f[7]) < end \
+                and int(f[8]) > start:
+            hit.add(f[0])
+    names = set(names)
+    return len(hit & names) / len(names), len(mapped & names) / len(names)
+
+
+@contextlib.contextmanager
+def host_route_timer(got):
+    """Adds to got["s"] the host seconds of the map's host L1 route: the
+    fragment's sketch on the host (sketch_sequence_py) and its map
+    (Mapper._map_fragment), which the device pipeline runs only for the
+    fragments whose postings exceed l1_postings_cap."""
+    from mashmap_tpu_torch.kernels import sketch
+    from mashmap_tpu_torch.map import engine
+    fns = (sketch.sketch_sequence_py, engine.Mapper._map_fragment)
+    got["s"] = 0.0
+
+    def timed(fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                got["s"] += time.perf_counter() - t0
+        return run
+    sketch.sketch_sequence_py = timed(fns[0])
+    engine.Mapper._map_fragment = timed(fns[1])
+    try:
+        yield
+    finally:
+        sketch.sketch_sequence_py, engine.Mapper._map_fragment = fns
+
+
+def reads_run(ref, n, seed, pi, sketch_size, out, device, smi):
+    """The reads mode's phases (module docstring); True when every gate
+    held."""
+    import torch
+    from mashmap_tpu_torch import stats
+    from mashmap_tpu_torch.api import map_files
+    from mashmap_tpu_torch.params import FIXED, Parameters
+    reads = reads_path(ref, n, seed)
+    if not os.path.exists(reads):
+        t0 = time.perf_counter()
+        n_bp = write_reads(ref, n, seed, reads)
+        emit({"phase": "reads", "reads": reads, "count": n, "seed": seed,
+              "bp": n_bp, "s": time.perf_counter() - t0})
+    ok, idx = build_phase(ref, None, device, smi, pi, sketch_size)
+    lengths = query_lengths(reads)
+    q_bp = sum(lengths.values())
+    p = Parameters(ref_sequences=[ref], query_sequences=[reads],
+                   out_file_name=out, percentage_identity=pi,
+                   sketch_size=idx.sketch_size, no_progress=True).finalize()
+    table_args = (p.sketch_size, p.kmer_size, p.ANIDiff, p.ANIDiffConf,
+                  FIXED.ss_table_max)
+    on_disk = os.path.exists(stats.cutoffs_cache_path(*table_args))
+    t0 = time.perf_counter()
+    stats.sketch_cutoffs(*table_args)
+    emit({"phase": "cutoff table", "s": p.sketch_size,
+          "on_disk_before": on_disk, "seconds": time.perf_counter() - t0})
+    peak_device_bytes(device, reset=True)
+    runs, host = [], {}
+    t0 = time.perf_counter()
+    with recorded_runs(runs), host_route_timer(host):
+        map_files(p, index=idx, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    map_s = time.perf_counter() - t0
+    m = runs[0][0]
+    with open(out) as fh:
+        paf = fh.read().splitlines()
+    truth, mapped = truth_shares(lengths, paf)
+    path = stats_since(m)
+    emit({"phase": "map", "card": smi, "device": str(device),
+          "query": reads, "reads": len(lengths), "query_bp": q_bp,
+          "pi": pi, "filter_mode": p.filter_mode,
+          "k": p.kmer_size, "w": p.seg_length, "s": p.sketch_size,
+          "map_s": map_s, "query_mbp_per_s": q_bp / 1e6 / map_s,
+          "paf_rows": len(paf), "paf_sha256": sha256(out),
+          "path_stats": path, "host_route_s": host["s"],
+          "host_route_s_a_fragment": (host["s"] / path["host_frags"]
+                                      if path["host_frags"] else None),
+          "phase_s": m.phase_s, "truth": truth, "mapped": mapped,
+          "min_truth": MIN_TRUTH,
+          "peak_device_bytes": peak_device_bytes(device),
+          "peak_host_rss_bytes": peak_rss_bytes()})
+    return ok and truth >= MIN_TRUTH
 
 
 def query_lengths(fa):
@@ -366,15 +682,29 @@ def main(argv=None):
     ap.add_argument("--map-only", action="store_true")
     ap.add_argument("--map-twice", action="store_true")
     ap.add_argument("--subset-gbp", type=float, default=None)
+    ap.add_argument("--reads", type=int, default=None, metavar="N",
+                    help="reads mode: map N ONT-shaped reads of the "
+                         "reference with the index resident")
+    ap.add_argument("--pi", type=float, default=None,
+                    help=f"identity, a fraction (default {PI} for the "
+                         f"assembly, {PI_READS} for reads)")
+    ap.add_argument("-J", "--sketch-size", type=int, default=None,
+                    help="sketch size (default: the auto s)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     from mashmap_tpu_torch.utils import resolve_device
     device = resolve_device(args.device)
     smi = card(device)
     ref, asm, idx_path, out = paths()
+    if args.reads is not None:
+        pi = PI_READS if args.pi is None else args.pi
+        return 0 if reads_run(ref, args.reads, READS_SEED, pi,
+                              args.sketch_size, out, device, smi) else 1
+    if (args.pi, args.sketch_size) != (None, None):
+        ap.error("--pi and -J go with --reads")
     ok = True
     if not args.map_only and (args.build_only or not npz_ok(idx_path)):
-        ok = build_phase(ref, idx_path, device, smi) and ok
+        ok = build_phase(ref, idx_path, device, smi)[0] and ok
     if args.build_only:
         return 0 if ok else 1
     query = asm
