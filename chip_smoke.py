@@ -127,7 +127,25 @@ Phases, in order; any failure propagates and exits non-zero:
    reserved; then theta.cu on the build's block rows timed, and on the
    first FLAGSHIP_CHECK_ROWS timed beside its plain version and its bound
    and equal to the plain version. The reads and the PAF are removed;
-13. [flagship]: the human-scale path at 62 Mbp: scripts/gen_flagship_data.py
+13. [flagship-rl]: BASELINE.json's configuration 5 (a --rl list of a
+   reference and its ALT contigs, the index sharded) at --pi 85 -J
+   FLAGSHIP_ONT_S: flagship_torch.py's write_alts writes 261 ALT-shaped
+   contigs of the [flagship] reference (1% divergence, 2.18 Mbp), the
+   index of the list is built resident, and the assembly's whole contigs
+   from FLAGSHIP_RL_QUERY_FIRST up to FLAGSHIP_RL_QUERY_GBP are mapped
+   with it by map_files three times: replicated on "cuda", then with
+   --shardIndex on the card listed twice and four times (the shard
+   counts asserted, the sharded steps eager); theta.cu's launches counted
+   (> 0, none of theta_wide.cu); each PAF's sha256 must equal
+   FLAGSHIP_RL_SHA256 (the JAX package's PAF on the same list and query),
+   each map must span two batches or more and give a row on an ALT;
+   the contigs must be
+   the reference's and the 261 ALTs; build s, map s, query Mbp/s,
+   path_stats, each shard's bytes and peak device memory; then theta.cu
+   on the build's block rows timed, and on the first
+   FLAGSHIP_CHECK_ROWS timed beside its plain version and its bound and
+   equal to it. The ALTs, the cut and the PAF are removed;
+14. [flagship]: the human-scale path at 62 Mbp: scripts/gen_flagship_data.py
    --scale 0.02 writes a reference of 24 chromosomes and its assembly
    (2.5% SNPs, whole contigs) into data/generated/; build_or_load_index
    with --saveIndex, then map_files with --loadIndex of that npz at
@@ -143,7 +161,7 @@ Phases, in order; any failure propagates and exits non-zero:
    while the next group's device phases run), every index array equal to
    the one-group build's, each group's main-thread and worker seconds and
    the build's wall. The pair and the npz are removed at the end;
-14. [configs]: BASELINE.json's other mapping configurations through
+15. [configs]: BASELINE.json's other mapping configurations through
    bench_extra_torch.py's functions on "cuda", at bench_extra.py's sizes
    (its data and its cutoff tables at s = 20, 60, 120, 200 and 298, and
    [flagship-ont]'s at 310, made by a child process from phase 3 on):
@@ -165,7 +183,8 @@ and read just after; a path that launched none fails the run. The line
 before the last is the kernels' JSON record (theta's "launches" are the
 main path's, the wide kernel's those of [wide-s] (a); "launches_by_path"
 those of every path; theta's "configs" the [configs] rows' times and
-bounds, "flagship_ont" [flagship-ont]'s); the last line is
+bounds, "flagship_ont" [flagship-ont]'s, "flagship_rl" [flagship-rl]'s);
+the last line is
 {"ok": true, "device": {...}}.
 The cutoff tables go to a fresh $XDG_CACHE_HOME that the run removes,
 so every cold number is cold. Without a CUDA device, or without the
@@ -252,6 +271,35 @@ PI_ONT = 0.85
 # run takes about 25 minutes)
 FLAGSHIP_ONT_SHA256 = ("9dba7774a8eb1deaba1436cdcc6738af"
                        "52f33d325a3071cee70f0e3fd0215fc3")
+# [flagship-rl]: BASELINE.json's configuration 5 at the [flagship] pair's
+# scale: a --rl list of that reference and its ALTs at FLAGSHIP_SCALE
+# (scripts/flagship_torch.py's write_alts, seed 261: 261 contigs, 2.18
+# Mbp), the assembly's whole contigs from FLAGSHIP_RL_QUERY_FIRST until
+# they reach FLAGSHIP_RL_QUERY_GBP (its last 5, chr20 to chrY, 7.5 Mbp:
+# more than one batch of fragments, and asm_chrX_ctg0 holds a row on an
+# ALT), mapped at --pi 85 -J FLAGSHIP_ONT_S replicated and split into
+# each count of flagship_torch.SHARDS (--shardIndex, the card listed that
+# many times)
+FLAGSHIP_RL_QUERY_FIRST = "asm_chr20_ctg0"
+FLAGSHIP_RL_QUERY_GBP = 0.0075
+# sha256 of the JAX package's PAF on those files, on the CPU:
+#   python scripts/gen_flagship_data.py --scale 0.02
+#   python -c "import sys; sys.path.insert(0, 'scripts');
+#       import flagship_torch as f; r = 'data/generated/hg3g_s0.02.fa';
+#       f.write_alts(r, 261, f.alts_path(r, 261, 0.02), 0.02);
+#       f.write_subset('data/generated/hg3g_asm_s0.02.fa', 0.0075,
+#                      'asm_chr20_ctg0')"
+#   JAX_PLATFORMS=cpu python -c "from mashmap_tpu.api import map_files;
+#       from mashmap_tpu.params import Parameters; d = 'data/generated/';
+#       map_files(Parameters(ref_sequences=[d + 'hg3g_s0.02.fa',
+#           d + 'hg3g_s0.02_alts261_x0.02_seed261.fa'],
+#           query_sequences=[d + 'hg3g_asm_s0.02_asm_chr20_ctg0_0.0075g.fa'],
+#           out_file_name='jax.paf', percentage_identity=0.85,
+#           sketch_size=310, no_progress=True))"
+# (6 rows, a contig each and asm_chrX_ctg0's second on chrX_alt106; the
+# CPU run takes about 30 minutes)
+FLAGSHIP_RL_SHA256 = ("1b44169ad21b2a2496020dd72f428570"
+                      "8ecc8bfe4bb2c052ca4a948f5e3be2b8")
 # [pipeline]: the small pangenome (120 fragments) mapped this many
 # fragments a batch (15 batches, queries spanning them), and the
 # [flagship] reference (62.47 M positions) built with this rank limit
@@ -2078,8 +2126,8 @@ def flagship_ont_phase(device):
     return launches, rec
 
 
-def flagship_ont_theta(p, device):
-    """theta.cu on the block rows of the [flagship-ont] build: the
+def flagship_ont_theta(p, device, tag="[flagship-ont]"):
+    """theta.cu on the block rows of the build of ``tag``'s phase: the
     kernel's median ms over all of them (in the build's launches) and
     their byte bound; on the first FLAGSHIP_CHECK_ROWS the kernel held
     to its plain version (flagship_torch.theta_check: both timed, the
@@ -2102,21 +2150,152 @@ def flagship_ont_theta(p, device):
     del cur, nxt
     torch.cuda.empty_cache()
     check = ft.theta_check(device, rows)
-    print(f"[flagship-ont] theta.cu on the build's block rows C={C} "
+    print(f"{tag} theta.cu on the build's block rows C={C} "
           f"S_B={s_b} s={s} in {-(-C // step)} launch(es): {ms} ms (byte "
           f"bound {bytes_ms} ms); on the first {check['rows']}: "
           f"{check['ms']} ms, plain {check['plain_ms']} ms, bound "
           f"{check['bound_ms']} ms ({check['bound_by']}), "
           f"max_abs_err={check['max_abs_err']}")
     if check["max_abs_err"] != 0:
-        raise AssertionError("[flagship-ont] theta.cu disagrees with its "
-                             "plain version")
-    return {"path": "flagship-ont", "C": C, "S_B": s_b, "s": s, "ms": ms,
+        raise AssertionError(f"{tag} theta.cu disagrees with its plain "
+                             f"version")
+    return {"path": tag[1:-1], "C": C, "S_B": s_b, "s": s, "ms": ms,
             "bytes_bound_ms": bytes_ms, "check_rows": check["rows"],
             "check_ms": check["ms"], "check_plain_ms": check["plain_ms"],
             "check_bound_ms": check["bound_ms"],
             "check_bound_by": check["bound_by"],
             "max_abs_err": check["max_abs_err"]}
+
+
+def flagship_rl_phase(device):
+    """[flagship-rl]: BASELINE.json's configuration 5 at the [flagship]
+    pair's scale through the entry points a user calls: a --rl list of
+    the reference and its ALTs (flagship_torch.write_alts at
+    FLAGSHIP_SCALE: 261 contigs), build_or_load_index (the index
+    resident), then map_files of a whole-contig cut of the assembly with
+    that index at --pi 85 -J FLAGSHIP_ONT_S, once for each count of
+    flagship_torch.SHARDS: replicated on the card, and split by
+    --shardIndex on the card listed that many times. theta launches
+    counted from 0 before the build and read after the last map. Gates:
+    each PAF's sha256 == FLAGSHIP_RL_SHA256 (the JAX package's), each map
+    ran the shards it asked for (the sharded steps eager) over two
+    batches or more with a row on an ALT, the contigs the
+    reference's and the ALTs', theta.cu launched and theta_wide.cu not,
+    and theta.cu equal to its plain version on the build's first
+    FLAGSHIP_CHECK_ROWS block rows. Returns (theta.cu's launches, the
+    record)."""
+    import torch
+    import flagship_torch as ft
+    from mashmap_tpu_torch.api import build_or_load_index, map_files
+    from mashmap_tpu_torch.kernels import graphs, theta
+    from mashmap_tpu_torch.params import Parameters
+    t_phase = time.perf_counter()
+    graphs.clear(device)
+    ref, asm = flagship_pair()
+    alts = ft.alts_path(ref, ft.ALTS_SEED, FLAGSHIP_SCALE)
+    out = os.path.join(DATA, "smoke_flagship_rl.paf")
+    query = None
+    try:
+        t0 = time.perf_counter()
+        alt_bp = ft.write_alts(ref, ft.ALTS_SEED, alts, FLAGSHIP_SCALE)
+        query, n_ctg, q_bp = ft.write_subset(asm, FLAGSHIP_RL_QUERY_GBP,
+                                             FLAGSHIP_RL_QUERY_FIRST)
+        print(f"[flagship-rl] {ft.ALTS_COUNT} ALTs, {alt_bp} bp (seed "
+              f"{ft.ALTS_SEED}), and a cut of {n_ctg} whole contigs, {q_bp} "
+              f"bp, written in {time.perf_counter() - t0} s")
+        refs = [ref, alts]
+        p = Parameters(ref_sequences=refs, percentage_identity=PI_ONT,
+                       sketch_size=FLAGSHIP_ONT_S, no_progress=True)
+        p.finalize()
+        ft.peak_device_bytes(device, reset=True)
+        theta.LAUNCHES = theta.WIDE_LAUNCHES = 0
+        t0 = time.perf_counter()
+        idx = build_or_load_index(p, device)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        n_primary = len(ft.fasta_layout(ref))
+        print(f"[flagship-rl] k={p.kmer_size} w={p.seg_length} "
+              f"s={p.sketch_size}: {idx.n_contigs} contigs, "
+              f"{len(idx.uniq_hashes)} unique minmers, {len(idx.mi_rank)} "
+              f"interval rows; build_s {build_s}; peak device bytes "
+              f"{ft.peak_device_bytes(device, reset=True)}")
+        if idx.n_contigs != n_primary + ft.ALTS_COUNT:
+            raise AssertionError(f"[flagship-rl] {idx.n_contigs} contigs, "
+                                 f"not {n_primary} + {ft.ALTS_COUNT}")
+        alt_names = {r[0] for r in ft.fasta_layout(alts)}
+        maps = {}
+        for n in ft.SHARDS:
+            pm = Parameters(ref_sequences=refs, query_sequences=[query],
+                            out_file_name=out, percentage_identity=PI_ONT,
+                            sketch_size=FLAGSHIP_ONT_S, shard_index=n > 1,
+                            no_progress=True)
+            graphs.clear(device)
+            mappers, batches = [], [0]
+            t0 = time.perf_counter()
+            with grab_mappers(mappers), step_counts() as steps, \
+                    count_batches(batches):
+                map_files(pm, index=idx, devices=[device] * n)
+            torch.cuda.synchronize()
+            map_s = time.perf_counter() - t0
+            m = mappers[0]
+            si = m._sharded
+            got = sha256(out)
+            with open(out) as fh:
+                rows = fh.read().splitlines()
+            alt_rows = sum(ln.split("\t")[5] in alt_names for ln in rows)
+            layout = ("replicated" if si is None else
+                      f"p_shard={si.p_shard} u_shard={si.u_shard} "
+                      f"m_shard={si.m_shard} bytes per shard="
+                      f"{si.shard_bytes()} postings per shard="
+                      f"{ft.postings_a_shard(idx, si)}")
+            print(f"[flagship-rl] shards={n}: map_s {map_s} query_mbp_per_s "
+                  f"{q_bp / 1e6 / map_s} path_stats={m.path_stats} "
+                  f"{layout}; {batches[0]} batches; step calls through the "
+                  f"graph cache {steps['calls']}; peak device bytes "
+                  f"{ft.peak_device_bytes(device, reset=True)}; {len(rows)} "
+                  f"rows, {alt_rows} on ALTs; sha256 {got}")
+            if (si.n_shards if si is not None else 1) != n:
+                raise AssertionError(f"[flagship-rl] asked for {n} shards, "
+                                     f"ran {layout}")
+            # the cut spans batches, and rows on the list's second file
+            # take the ALTs' ids through the (sharded) lookup
+            if batches[0] < 2 or alt_rows < 1:
+                raise AssertionError(f"[flagship-rl] shards={n}: "
+                                     f"{batches[0]} batches, {alt_rows} "
+                                     f"rows on ALTs")
+            # the sharded steps stay eager, as the JAX package's prewarm
+            # leaves them out; the replicated steps replay graphs
+            if (n > 1) == any(steps["calls"].values()):
+                raise AssertionError(f"[flagship-rl] shards={n}: step calls "
+                                     f"through the graph cache "
+                                     f"{steps['calls']}")
+            if got != FLAGSHIP_RL_SHA256:
+                raise AssertionError(f"[flagship-rl] shards={n}: PAF sha256 "
+                                     f"{got} != the JAX package's "
+                                     f"{FLAGSHIP_RL_SHA256}")
+            maps[n] = {"map_s": map_s, "batches": batches[0],
+                       "alt_rows": alt_rows, "shard_bytes": (
+                           si.shard_bytes() if si is not None else None)}
+            del m, si, mappers
+        launches = theta.LAUNCHES
+        graphs.clear(device)
+        del idx
+        print(f"[flagship-rl] every PAF sha256 == FLAGSHIP_RL_SHA256 (the JAX "
+              f"package's), shards {list(ft.SHARDS)}; theta "
+              f"launches: theta.cu {launches}, theta_wide.cu "
+              f"{theta.WIDE_LAUNCHES}")
+        if launches <= 0 or theta.WIDE_LAUNCHES != 0:
+            raise AssertionError(f"[flagship-rl] launched theta.cu "
+                                 f"{launches} times and theta_wide.cu "
+                                 f"{theta.WIDE_LAUNCHES}")
+        rec = flagship_ont_theta(p, device, "[flagship-rl]")
+        rec.update(build_s=build_s, maps=maps)
+    finally:
+        for path in (alts, query, out):
+            if path is not None and os.path.exists(path):
+                os.remove(path)
+    print(f"[flagship-rl] {time.perf_counter() - t_phase} s")
+    return launches, rec
 
 
 def flagship_phase(device):
@@ -2437,7 +2616,7 @@ def run():
 
 
 def phases(device, fa_main, fa_small, table_job, prep_job, t_start):
-    """Phases 3 to 14 and the last two lines."""
+    """Phases 3 to 15 and the last two lines."""
     import torch
     from mashmap_tpu_torch.io import for_each_seq_in_file
     # 3. theta against its plain version, then times on the main path's
@@ -2492,10 +2671,15 @@ def phases(device, fa_main, fa_small, table_job, prep_job, t_start):
     # held to the JAX package's PAF
     by_path["flagship-ont"], ont_rec = flagship_ont_phase(device)
 
-    # 13. the human-scale path at 62 Mbp, held to the JAX package's PAF
+    # 13. the 62 Mbp reference and its ALTs in a --rl list at --pi 85,
+    # -J 310, replicated and in 2 and 4 shards, held to the JAX package's
+    # PAF
+    by_path["flagship-rl"], rl_rec = flagship_rl_phase(device)
+
+    # 14. the human-scale path at 62 Mbp, held to the JAX package's PAF
     by_path["flagship"], by_path["pipeline-groups"] = flagship_phase(device)
 
-    # 14. bench_extra_torch's configurations, held to the JAX package's PAFs
+    # 15. bench_extra_torch's configurations, held to the JAX package's PAFs
     config_by_path, config_recs = configs_phase(device, prep_job)
     by_path.update(config_by_path)
 
@@ -2504,7 +2688,7 @@ def phases(device, fa_main, fa_small, table_job, prep_job, t_start):
            "launches": launches,
            "max_abs_err": max(err, rec.pop("max_abs_err")), **rec,
            "launches_by_path": by_path, "configs": config_recs,
-           "flagship_ont": ont_rec}
+           "flagship_ont": ont_rec, "flagship_rl": rl_rec}
     wide_rec = {"name": wide_rec.pop("name"), "route": wide_rec.pop("route"),
                 "source": wide_rec.pop("source"),
                 "replaces": wide_rec.pop("replaces"),

@@ -43,11 +43,44 @@ phases
    on their origin chromosome and strand whose reference interval
    overlaps the origin's.
 
+ALTs mode (``--alts``, BASELINE.json's configuration 5, "multi-reference
+--rl list mapping (human assembly vs hg38 + alt contigs, sharded index)",
+at MashMap's defaults: -f map, ``--pi`` 0.85 unless given, auto k, w, s =
+19, 5000, 310 at full scale): ALTS_COUNT contigs shaped like GRCh38's
+alternate loci (``write_alts``: copies of primary intervals at 1%
+divergence, ALTS_BP x ``--alts-scale`` bases in all, each one's origin in
+its name) written beside the reference, a --rl list naming the reference
+and then them, and phases
+
+1. alts: their count, bases and the seconds to write them;
+2. subset (``--subset-gbp X``), as above;
+3. build: ``build_or_load_index`` on the list with the index resident,
+   theta.cu checked as in the reads mode; the contigs, and the unique
+   minmers and interval rows against the int32 positions of the sharded
+   steps;
+4. cutoff table, as in the reads mode;
+5. one map for each count in ``--shards`` (default 1,2,4), each
+   ``map_files`` with that index on the device listed that many times
+   (``--shardIndex`` above one), the graph cache cleared before each:
+   seconds, query Mbp/s, ``Mapper.phase_s``, path_stats, the shard
+   layout, each shard's device bytes and the postings it holds before
+   the padding, device peaks, resident set and
+   pinned host bytes at its start and end, PAF rows, rows on ALT contigs
+   and the sha256; the 2-shard map's kernel launches a batch under
+   torch.profiler over two batches;
+6. gates: every PAF the same bytes, every map that asked for n shards
+   ran n, theta.cu equal to its plain version, every query sequence's
+   coverage at least MIN_COVERAGE, and the contigs the reference's plus
+   ALTS_COUNT.
+
 Usage:
     python3 scripts/flagship_torch.py [--build-only | --map-only]
         [--map-twice] [--subset-gbp X] [--device cpu]
     python3 scripts/flagship_torch.py --reads N [--pi 0.85] [-J S]
         [--device cpu]
+    python3 scripts/flagship_torch.py --alts [--subset-gbp X]
+        [--shards 1,2,4] [--alts-scale F] [--alts-seed N] [--pi 0.85]
+        [-J S] [--device cpu]
 
 Without ``--map-only`` the build runs when ``--build-only`` is given or
 no valid npz exists; without ``--build-only`` the map runs. Paths follow
@@ -92,16 +125,34 @@ JAX_BUILD = {
 }
 # reads mode: ONT-shaped reads as bench_extra_torch.py makes them,
 # lengths uniform in [10 kb, 30 kb) and 5% divergence through
-# tests/genomes.py's mutate (10% of it indels), at MashMap's default
-# identity; the truth gate's least share
+# tests/genomes.py's mutate (10% of it indels); the truth gate's least
+# share
 READ_LEN = (10_000, 30_000)
 READ_DIVERGENCE = 0.05
 READS_SEED = 85
-PI_READS = 0.85
+# MashMap's default identity (--pi 85), the reads and ALTs modes' default
+PI_MASHMAP = 0.85
 MIN_TRUTH = 0.95
 # theta.cu against its plain version on this many rows of the build's
 # first theta call
 THETA_CHECK_ROWS = 1024
+I32_MAX = (1 << 31) - 1
+# the resident set is sampled this often in each phase of the ALTs mode,
+# which stops when the host's available memory falls below this
+RSS_EVERY_S = 0.1
+MIN_AVAILABLE_BYTES = 3 << 30
+# ALTs mode: contigs shaped like GRCh38's alternate loci (the Genome
+# Reference Consortium's GRCh38: 261 ALT contigs, about 109 Mbp), lengths
+# log-uniform in ALT_LEN before they are scaled to that sum, each a copy
+# of a primary interval at 1% divergence; mapped with the reference in a
+# --rl list at MashMap's defaults, replicated and split into each count
+# of SHARDS
+ALTS_COUNT = 261
+ALTS_BP = 109_000_000
+ALT_LEN = (5_000, 5_000_000)
+ALT_DIVERGENCE = 0.01
+ALTS_SEED = 261
+SHARDS = (1, 2, 4)
 
 
 def paths():
@@ -146,6 +197,51 @@ def peak_device_bytes(device, reset=False):
 def peak_rss_bytes():
     """This process's peak resident set so far (Linux reports KiB)."""
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def rss_bytes():
+    """This process's resident set now (Linux's /proc/self/statm)."""
+    with open("/proc/self/statm") as fh:
+        return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def available_bytes():
+    """The host's available memory (Linux's MemAvailable)."""
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return None
+
+
+@contextlib.contextmanager
+def watch_rss(phase, got):
+    """Samples this process's resident set every RSS_EVERY_S seconds on a
+    thread while the block runs and puts the largest in got["peak"]; when
+    the host's available memory falls below MIN_AVAILABLE_BYTES it prints
+    a JSON line with the phase and the last sample and ends the process
+    with exit code 1, before the kernel's out-of-memory killer would."""
+    import threading
+    got["peak"] = rss_bytes()
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(RSS_EVERY_S):
+            now = rss_bytes()
+            got["peak"] = max(got["peak"], now)
+            avail = available_bytes()
+            if avail is not None and avail < MIN_AVAILABLE_BYTES:
+                emit({"phase": phase, "stopped": "host memory",
+                      "rss_bytes": now, "peak_rss_in_phase": got["peak"],
+                      "available_bytes": avail})
+                os._exit(1)
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield got
+    finally:
+        done.set()
+        t.join()
 
 
 def sha256(path):
@@ -256,16 +352,18 @@ def group_seconds():
 
 
 def build_phase(ref, idx_path, device, smi, pi=PI, sketch_size=None):
-    """build_or_load_index on ``ref`` at ``pi`` (and -J ``sketch_size``
-    when given), then, with an ``idx_path``, the save and the npz's zip
-    check; without one the index stays resident and theta.cu is checked
-    on the first call's rows (theta_check). Returns (gates held, index)."""
+    """build_or_load_index on ``ref`` (a file, or a list of them as --rl
+    names them) at ``pi`` (and -J ``sketch_size`` when given), then, with
+    an ``idx_path``, the save and the npz's zip check; without one the
+    index stays resident and theta.cu is checked on the first call's rows
+    (theta_check). Returns (gates held, index)."""
     import torch
     from mashmap_tpu_torch.api import build_or_load_index
     from mashmap_tpu_torch.kernels import theta
     from mashmap_tpu_torch.params import Parameters
     from mashmap_tpu_torch.native import native_available
-    p = Parameters(ref_sequences=[ref], percentage_identity=pi,
+    refs = ref if isinstance(ref, list) else [ref]
+    p = Parameters(ref_sequences=refs, percentage_identity=pi,
                    sketch_size=sketch_size, no_progress=True).finalize()
     # the theta kernel's nvcc build and the native reader's g++ build
     # happen once per checkout, at first use: outside the build's time
@@ -278,6 +376,7 @@ def build_phase(ref, idx_path, device, smi, pi=PI, sketch_size=None):
     native_available()
     first_use_s = time.perf_counter() - t0
     peak_device_bytes(device, reset=True)
+    rss_before = rss_bytes()
     theta.LAUNCHES = theta.WIDE_LAUNCHES = 0
     # on the card, a resident build's kernel is checked on its own rows
     resident_card = idx_path is None and device.type == "cuda"
@@ -294,6 +393,13 @@ def build_phase(ref, idx_path, device, smi, pi=PI, sketch_size=None):
     got = {"k": idx.kmer_size, "w": idx.window_size, "s": idx.sketch_size,
            "minmers": int(len(idx.uniq_hashes)),
            "interval_rows": int(len(idx.mi_rank))}
+    # the sharded L1 step's int32 code (position << 1 | found) and the
+    # interval rows' int32 positions stay below 2^31
+    int32_room = {"l1_code_max": 2 * got["minmers"] + 1,
+                  "interval_rows": got["interval_rows"],
+                  "int32_max": I32_MAX,
+                  "fits": max(2 * got["minmers"] + 1,
+                              got["interval_rows"]) <= I32_MAX}
     rec = {"phase": "build", "card": smi, "device": str(device),
            "reference": ref, "reference_bytes": p.reference_size,
            "pi": pi, "first_use_builds_s": first_use_s, "build_s": build_s}
@@ -312,10 +418,14 @@ def build_phase(ref, idx_path, device, smi, pi=PI, sketch_size=None):
                 "groups_main_worker_s": groups,
                 "main_s": sum(m for m, _ in groups.values()),
                 "worker_s": sum(w for _, w in groups.values()),
+                "contigs": idx.n_contigs, "int32_room": int32_room,
                 "index_host_bytes": index_bytes(idx),
                 "peak_device_bytes": peak_device_bytes(device),
+                "rss_bytes_start_end": [rss_before, rss_bytes()],
                 "peak_host_rss_bytes": peak_rss_bytes()})
-    want = JAX_BUILD.get(os.path.basename(ref))
+    ok = ok and int32_room["fits"]
+    want = JAX_BUILD.get(os.path.basename(refs[0])) if len(refs) == 1 \
+        else None
     if want is not None and pi == PI and sketch_size is None:
         rec["jax_build"] = want
         rec["jax_build_equal"] = got == want
@@ -350,23 +460,27 @@ def index_bytes(idx):
                if isinstance(v, np.ndarray))
 
 
-def write_subset(asm, gbp):
-    """The whole contigs of ``asm`` in file order until their bases reach
-    ``gbp`` Gbp, written byte for byte to ``<asm>_<gbp>g.fa``; returns
-    (path, contigs, bases)."""
+def write_subset(asm, gbp, first=None):
+    """The whole contigs of ``asm`` in file order, from the one named
+    ``first`` (by default the file's first), until their bases reach
+    ``gbp`` Gbp, written byte for byte to ``<asm>_<gbp>g.fa`` (or
+    ``<asm>_<first>_<gbp>g.fa``); returns (path, contigs, bases)."""
     stem = asm[:-3] if asm.endswith(".fa") else asm
-    out = f"{stem}_{gbp:g}g.fa"
+    out = f"{stem}_{first + '_' if first else ''}{gbp:g}g.fa"
     target = gbp * 1e9
+    keep = first is None
     n_ctg = n_bp = 0
     with open(asm, "rb") as src, open(out + ".tmp", "wb") as dst:
         for line in src:
             if line.startswith(b">"):
+                keep = keep or line[1:].split()[0].decode() == first
                 if n_bp >= target:
                     break
-                n_ctg += 1
-            else:
+                n_ctg += keep
+            elif keep:
                 n_bp += len(line.rstrip(b"\r\n"))
-            dst.write(line)
+            if keep:
+                dst.write(line)
     os.replace(out + ".tmp", out)
     return out, n_ctg, n_bp
 
@@ -457,6 +571,60 @@ def write_reads(ref, n, seed, out):
     return n_bp
 
 
+def alts_path(ref, seed, scale=1.0):
+    """Where write_alts puts the ALT contigs of ``ref``: beside it."""
+    stem = ref[:-3] if ref.endswith(".fa") else ref
+    return f"{stem}_alts{ALTS_COUNT}_x{scale:g}_seed{seed}.fa"
+
+
+def write_alts(ref, seed, out, scale=1.0):
+    """Write ALTS_COUNT contigs shaped like GRCh38's alternate loci to
+    ``out``: lengths drawn log-uniformly from ALT_LEN, then scaled so that
+    they sum to ALTS_BP x ``scale``; each one a copy of an interval of a
+    chromosome of ``ref`` at a start uniform over the bases where it fits
+    (never across a chromosome's end), mutated to ALT_DIVERGENCE by
+    tests/genomes.py's mutate with a seed of its own, forward strand.
+    Contig i is named ``<chromosome>_alt<i>:<start>-<end>`` (0-based, end
+    exclusive). Deterministic from ``seed``; the intervals are sliced from
+    a memory map of ``ref``. Returns the ALTs' bases."""
+    import numpy as np
+    from genomes import mutate
+    layout = fasta_layout(ref)
+    lens = np.array([r[2] for r in layout], np.int64)
+    rng = np.random.default_rng(seed)
+    raw = np.exp(rng.uniform(np.log(ALT_LEN[0]), np.log(ALT_LEN[1]),
+                             ALTS_COUNT))
+    sizes = np.maximum(np.rint(raw * (ALTS_BP * scale / raw.sum())),
+                       1).astype(np.int64)
+    n_bp = 0
+    with open(ref, "rb") as fh, \
+            mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ) as mm, \
+            open(out + ".tmp", "w") as dst:
+        for i, m in enumerate(sizes.tolist()):
+            room = np.maximum(lens - m + 1, 0)
+            cum = np.cumsum(room)
+            if cum[-1] == 0:
+                raise ValueError(f"{ref}: no chromosome holds {m} bases")
+            u = int(rng.integers(0, cum[-1]))
+            c = int(np.searchsorted(cum, u, side="right"))
+            a = u - int(cum[c] - room[c])
+            seq = mutate(window(mm, layout[c], a, a + m), ALT_DIVERGENCE,
+                         seed=int(rng.integers(1 << 31)))
+            dst.write(f">{layout[c][0]}_alt{i}:{a}-{a + m}\n")
+            dst.write("".join(seq[j:j + 80] + "\n"
+                              for j in range(0, len(seq), 80)))
+            n_bp += len(seq)
+    os.replace(out + ".tmp", out)
+    return n_bp
+
+
+def alt_origin(name):
+    """(chromosome, start, end) that write_alts put in an ALT's name."""
+    head, span = name.rsplit(":", 1)
+    start, end = span.split("-")
+    return head.rsplit("_alt", 1)[0], int(start), int(end)
+
+
 def read_origin(name):
     """(chromosome, start, end, strand) that write_reads put in a read's
     name."""
@@ -513,9 +681,8 @@ def reads_run(ref, n, seed, pi, sketch_size, out, device, smi):
     """The reads mode's phases (module docstring); True when every gate
     held."""
     import torch
-    from mashmap_tpu_torch import stats
     from mashmap_tpu_torch.api import map_files
-    from mashmap_tpu_torch.params import FIXED, Parameters
+    from mashmap_tpu_torch.params import Parameters
     reads = reads_path(ref, n, seed)
     if not os.path.exists(reads):
         t0 = time.perf_counter()
@@ -528,13 +695,7 @@ def reads_run(ref, n, seed, pi, sketch_size, out, device, smi):
     p = Parameters(ref_sequences=[ref], query_sequences=[reads],
                    out_file_name=out, percentage_identity=pi,
                    sketch_size=idx.sketch_size, no_progress=True).finalize()
-    table_args = (p.sketch_size, p.kmer_size, p.ANIDiff, p.ANIDiffConf,
-                  FIXED.ss_table_max)
-    on_disk = os.path.exists(stats.cutoffs_cache_path(*table_args))
-    t0 = time.perf_counter()
-    stats.sketch_cutoffs(*table_args)
-    emit({"phase": "cutoff table", "s": p.sketch_size,
-          "on_disk_before": on_disk, "seconds": time.perf_counter() - t0})
+    cutoff_phase(p)
     peak_device_bytes(device, reset=True)
     runs, host = [], {}
     t0 = time.perf_counter()
@@ -562,6 +723,171 @@ def reads_run(ref, n, seed, pi, sketch_size, out, device, smi):
           "peak_device_bytes": peak_device_bytes(device),
           "peak_host_rss_bytes": peak_rss_bytes()})
     return ok and truth >= MIN_TRUTH
+
+
+def cutoff_phase(p):
+    """The cutoff table at p's s, timed, and whether it was on disk
+    already (cold when it was not)."""
+    from mashmap_tpu_torch import stats
+    from mashmap_tpu_torch.params import FIXED
+    table_args = (p.sketch_size, p.kmer_size, p.ANIDiff, p.ANIDiffConf,
+                  FIXED.ss_table_max)
+    on_disk = os.path.exists(stats.cutoffs_cache_path(*table_args))
+    t0 = time.perf_counter()
+    stats.sketch_cutoffs(*table_args)
+    emit({"phase": "cutoff table", "s": p.sketch_size,
+          "on_disk_before": on_disk, "seconds": time.perf_counter() - t0})
+
+
+def host_pinned_bytes(reset=False):
+    """{"current", "peak"}: the pinned host bytes PyTorch's caching host
+    allocator holds (handed out and cached) now and at most since the
+    last reset (None on the CPU); with reset, a new window starts."""
+    import torch
+    if not torch.cuda.is_initialized():
+        return None
+    stats = torch.cuda.host_memory_stats()
+    if reset:
+        torch.cuda.reset_peak_host_memory_stats()
+    return {"current": stats.get("allocated_bytes.current"),
+            "peak": stats.get("allocated_bytes.peak")}
+
+
+def launches_a_batch(m, query, device):
+    """cudaLaunchKernel and cudaGraphLaunch a batch of the Mapper ``m``
+    (its index already on the card) over the first two batches' worth of
+    ``query``'s first record, under torch.profiler (None on the CPU)."""
+    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke
+    from genomes import write_fasta
+    from mashmap_tpu_torch.io import for_each_seq_in_file
+    if device.type != "cuda":
+        return None
+    name, seq = next(iter(for_each_seq_in_file(query)))
+    cut = f"{query}.cut.fa"
+    write_fasta(cut, [(name, seq[:2 * m.p.batch_fragments
+                                 * m.p.seg_length])])
+    batches = [0]
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof, \
+                chip_smoke.count_batches(batches), open(os.devnull, "w") as fh:
+            m.run([cut], fh)
+    finally:
+        os.remove(cut)
+    calls = chip_smoke.runtime_calls(prof)
+    return {"batches": batches[0], "calls": calls,
+            "a_batch": chip_smoke.per_batch(calls, batches[0])}
+
+
+def postings_a_shard(idx, si):
+    """The postings each shard of the sharded index ``si`` holds before
+    p_shard pads them: shard d takes unique hashes [d u_shard, (d + 1)
+    u_shard) and their postings."""
+    U = len(idx.uniq_hashes)
+    cut = [min(d * si.u_shard, U) for d in range(si.n_shards + 1)]
+    return [int(idx.post_offsets[b] - idx.post_offsets[a])
+            for a, b in zip(cut, cut[1:])]
+
+
+def alts_run(ref, asm, subset_gbp, shards, seed, scale, pi, sketch_size,
+             out, device, smi):
+    """The ALTs mode's phases (module docstring); True when every gate
+    held."""
+    import torch
+    from mashmap_tpu_torch.api import map_files
+    from mashmap_tpu_torch.kernels import graphs
+    from mashmap_tpu_torch.params import Parameters
+    alts = alts_path(ref, seed, scale)
+    t0 = time.perf_counter()
+    n_bp = write_alts(ref, seed, alts, scale)
+    emit({"phase": "alts", "alts": alts, "count": ALTS_COUNT, "seed": seed,
+          "scale": scale, "bp": n_bp, "s": time.perf_counter() - t0})
+    # the primary first, then the ALTs; <out>.rl names them for the CLI's
+    # --rl, and the maps below take the same list
+    refs = [ref, alts]
+    with open(f"{out}.rl", "w") as fh:
+        fh.write("".join(f"{r}\n" for r in refs))
+    query = asm
+    if subset_gbp is not None:
+        t0 = time.perf_counter()
+        query, n_ctg, q_bp = write_subset(asm, subset_gbp)
+        emit({"phase": "subset", "assembly": asm, "subset": query,
+              "contigs": n_ctg, "bp": q_bp, "s": time.perf_counter() - t0})
+    with watch_rss("build", {}) as watch:
+        ok, idx = build_phase(refs, None, device, smi, pi, sketch_size)
+    emit({"phase": "build host memory", "peak_rss_in_phase": watch["peak"],
+          "rss_bytes": rss_bytes(), "available_bytes": available_bytes(),
+          "host_pinned_bytes": host_pinned_bytes(reset=True)})
+    n_primary = len(fasta_layout(ref))
+    alt_names = {r[0] for r in fasta_layout(alts)}
+    contigs_ok = idx.n_contigs == n_primary + ALTS_COUNT
+    p = Parameters(ref_sequences=refs, percentage_identity=pi,
+                   sketch_size=idx.sketch_size, no_progress=True).finalize()
+    cutoff_phase(p)
+    lengths = query_lengths(query)
+    q_bp = sum(lengths.values())
+    shas = []
+    for n in shards:
+        path = f"{out}.shards{n}"
+        pm = Parameters(ref_sequences=refs, query_sequences=[query],
+                        out_file_name=path, percentage_identity=pi,
+                        sketch_size=sketch_size, shard_index=n > 1,
+                        no_progress=True)
+        # the earlier map's graphs, their pool and tables leave the card
+        graphs.clear(device)
+        peak_device_bytes(device, reset=True)
+        rss0, avail0 = rss_bytes(), available_bytes()
+        pinned0 = host_pinned_bytes(reset=True)
+        runs = []
+        t0 = time.perf_counter()
+        with recorded_runs(runs), watch_rss(f"map shards={n}", {}) as watch:
+            map_files(pm, index=idx, devices=[device] * n)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        map_s = time.perf_counter() - t0
+        m = runs[0][0]
+        si = m._sharded
+        n_got = si.n_shards if si is not None else 1
+        peaks = peak_device_bytes(device)
+        with open(path) as fh:
+            paf = fh.read().splitlines()
+        low_cov, low = coverage_gate(lengths, path)
+        shas.append(sha256(path))
+        rec = {"phase": f"map shards={n}", "card": smi,
+               "device": str(device), "devices": [str(d) for d in m.devices],
+               "query": query, "query_sequences": len(lengths),
+               "query_bp": q_bp, "pi": pi, "filter_mode": pm.filter_mode,
+               "k": pm.kmer_size, "w": pm.seg_length, "s": pm.sketch_size,
+               "map_s": map_s, "query_mbp_per_s": q_bp / 1e6 / map_s,
+               "phase_s": m.phase_s, "path_stats": stats_since(m),
+               "n_shards": n_got, "paf_rows": len(paf),
+               "alt_rows": sum(ln.split("\t")[5] in alt_names
+                               for ln in paf),
+               "paf_sha256": shas[-1], "coverage_min": low_cov,
+               "coverage_below_gate": low, "peak_device_bytes": peaks,
+               "rss_bytes_start_end": [rss0, rss_bytes()],
+               "peak_rss_in_phase": watch["peak"],
+               "available_bytes_at_start": avail0,
+               "host_pinned_bytes_start_end": [pinned0,
+                                               host_pinned_bytes()],
+               "peak_host_rss_bytes": peak_rss_bytes()}
+        if si is not None:
+            rec.update(p_shard=si.p_shard, u_shard=si.u_shard,
+                       m_shard=si.m_shard, shard_bytes=si.shard_bytes(),
+                       postings_a_shard=postings_a_shard(idx, si))
+        if n == 2:
+            rec["launches_a_batch"] = launches_a_batch(m, query, device)
+        emit(rec)
+        ok = ok and n_got == n and not low and len(paf) > 0
+        del m, si, runs
+    if device.type == "cuda":
+        graphs.clear(device)
+    same = len(set(shas)) == 1
+    emit({"phase": "alts gates", "pafs_identical": same,
+          "contigs": idx.n_contigs, "primary_contigs": n_primary,
+          "contigs_ok": contigs_ok})
+    return ok and same and contigs_ok
 
 
 def query_lengths(fa):
@@ -687,9 +1013,19 @@ def main(argv=None):
                          "reference with the index resident")
     ap.add_argument("--pi", type=float, default=None,
                     help=f"identity, a fraction (default {PI} for the "
-                         f"assembly, {PI_READS} for reads)")
+                         f"assembly, {PI_MASHMAP} for reads and ALTs)")
     ap.add_argument("-J", "--sketch-size", type=int, default=None,
                     help="sketch size (default: the auto s)")
+    ap.add_argument("--alts", action="store_true",
+                    help="ALTs mode: map the assembly against a --rl list "
+                         "of the reference and its ALT contigs, "
+                         "replicated and sharded")
+    ap.add_argument("--alts-seed", type=int, default=ALTS_SEED)
+    ap.add_argument("--alts-scale", type=float, default=1.0,
+                    help="the ALTs' bases as a share of ALTS_BP")
+    ap.add_argument("--shards", default=",".join(map(str, SHARDS)),
+                    help="shard counts of the ALTs mode's maps, in order "
+                         "(1: replicated)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     from mashmap_tpu_torch.utils import resolve_device
@@ -697,11 +1033,17 @@ def main(argv=None):
     smi = card(device)
     ref, asm, idx_path, out = paths()
     if args.reads is not None:
-        pi = PI_READS if args.pi is None else args.pi
+        pi = PI_MASHMAP if args.pi is None else args.pi
         return 0 if reads_run(ref, args.reads, READS_SEED, pi,
                               args.sketch_size, out, device, smi) else 1
+    if args.alts:
+        pi = PI_MASHMAP if args.pi is None else args.pi
+        shards = [int(n) for n in args.shards.split(",")]
+        return 0 if alts_run(ref, asm, args.subset_gbp, shards,
+                             args.alts_seed, args.alts_scale, pi,
+                             args.sketch_size, out, device, smi) else 1
     if (args.pi, args.sketch_size) != (None, None):
-        ap.error("--pi and -J go with --reads")
+        ap.error("--pi and -J go with --reads or --alts")
     ok = True
     if not args.map_only and (args.build_only or not npz_ok(idx_path)):
         ok = build_phase(ref, idx_path, device, smi)[0] and ok
