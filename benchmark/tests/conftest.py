@@ -1,0 +1,10 @@
+"""The benchmark's CPU tests: the repository root on the path, so that
+``benchmark`` and the program import as the harness imports them."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
