@@ -15,6 +15,7 @@ import sys
 import time
 from typing import Optional
 
+from . import trace
 from .params import Parameters, FILTER_ONETOONE
 from .index.builder import ReferenceIndex, build_index
 from .io import for_each_seq_in_file
@@ -52,6 +53,7 @@ def build_or_load_index(params: Parameters, device=None) -> ReferenceIndex:
     return idx
 
 
+@trace.job
 def map_files(params: Parameters,
               index: Optional[ReferenceIndex] = None,
               device=None, devices=None) -> ReferenceIndex:
@@ -60,7 +62,9 @@ def map_files(params: Parameters,
     Maps on ``devices`` (default: ``[device]`` when a device is named,
     else every visible CUDA device); the index builds on the first. A
     coordinator and >= 2 processes (flags or MASHMAP_TPU_* variables)
-    make this one process of a multi-process run."""
+    make this one process of a multi-process run. Each call is a job of
+    trace.py: its spans carry its ordinal and its totals go to
+    ``trace.JOBS``."""
     if devices is None and device is not None:
         devices = [device]
     devices = make_mesh(devices)

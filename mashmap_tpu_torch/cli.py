@@ -303,7 +303,10 @@ def main(argv=None, device=None, devices=None) -> int:
         acts = [ProfilerActivity.CPU]
         if any(d.type == "cuda" for d in devices):
             acts.append(ProfilerActivity.CUDA)
-        with profile(activities=acts) as prof:
+        # trace.recording: the program's spans in the trace, as
+        # record_function ranges beside the host ops and kernels
+        from . import trace
+        with profile(activities=acts) as prof, trace.recording():
             map_files(params, devices=devices)
         os.makedirs(args.traceDir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.traceDir, "trace.json"))

@@ -28,12 +28,12 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..kernels import events as events_mod
 from ..kernels import kmers, winnow
 from ..kernels.murmur import UMAX
@@ -588,7 +588,9 @@ def build_index(
         nonlocal pending
         if pending is not None:
             fut, pending = pending, None
-            consume(fut.result())
+            with trace.span("build worker-wait"):
+                resolved = fut.result()
+            consume(resolved)
 
     def run_group(ex, group, build=_build_group):
         nonlocal pending
@@ -600,7 +602,8 @@ def build_index(
     with ThreadPoolExecutor(max_workers=1) as ex:
         group: List[Tuple[int, str]] = []
         group_pos = 0
-        for seq_id, (name, seq) in enumerate(contigs):
+        for seq_id, (name, seq) in enumerate(
+                trace.each("build read", contigs)):
             names.append(name)
             lengths.append(len(seq))
             if len(seq) < window_size:
@@ -634,48 +637,53 @@ def build_index(
         return (np.concatenate(parts).astype(dtype) if parts
                 else np.empty(0, dtype))
 
-    ph = _cat(acc_hash, np.uint64)
-    pb = _cat(acc_wb, np.int32)
-    pe = _cat(acc_we, np.int32)
-    pseq = _cat(acc_seq, np.int32)
+    with trace.span("build tail-concat"):
+        ph = _cat(acc_hash, np.uint64)
+        pb = _cat(acc_wb, np.int32)
+        pe = _cat(acc_we, np.int32)
+        pseq = _cat(acc_seq, np.int32)
 
     # CSR postings sorted by (hash, seqid, wpos): the accumulators hold
     # one hash-ascending run per contig in ascending seq_id, so one
     # stable argsort on the hash reproduces the 3-key order
-    o = np.argsort(ph, kind="stable")
-    ph, pb, pe, pseq = ph[o], pb[o], pe[o], pseq[o]
-    starts, counts = _sorted_groups(ph)
-    uniq_hashes = ph[starts]
-    post_offsets = np.concatenate(
-        (starts, [len(ph)])).astype(np.int64)
+    with trace.span("build tail-sort"):
+        o = np.argsort(ph, kind="stable")
+        ph, pb, pe, pseq = ph[o], pb[o], pe[o], pseq[o]
 
-    sizes = counts * 2  # IntervalPoints per hash
-    freq_threshold = _freq_threshold(sizes, kmer_pct_threshold)
-    is_frequent = sizes >= freq_threshold
+    with trace.span("build tail-ranks"):
+        starts, counts = _sorted_groups(ph)
+        uniq_hashes = ph[starts]
+        post_offsets = np.concatenate(
+            (starts, [len(ph)])).astype(np.int64)
 
-    # interval rows: group-local slots -> global ranks
-    grank = []
-    for vals in group_vals:
-        gr = np.searchsorted(uniq_hashes, vals).astype(np.int32)
-        if len(gr):
-            assert np.array_equal(uniq_hashes[gr], vals), \
-                "interval hash missing from postings hash table"
-        grank.append(gr)
-    mi_rank = (np.concatenate(
-        [grank[g][sl] for g, sl in zip(acc_mgid, acc_mh)])
-        if acc_mh else np.empty(0, np.int32)).astype(np.int32)
-    mi_wpos = _cat(acc_mb, np.int32)
-    mi_wend = _cat(acc_me, np.int32)
-    mi_strand = _cat(acc_ms, np.int8)
-    mi_seqid = _cat(acc_mseq, np.int32)
+        sizes = counts * 2  # IntervalPoints per hash
+        freq_threshold = _freq_threshold(sizes, kmer_pct_threshold)
+        is_frequent = sizes >= freq_threshold
+
+        # interval rows: group-local slots -> global ranks
+        grank = []
+        for vals in group_vals:
+            gr = np.searchsorted(uniq_hashes, vals).astype(np.int32)
+            if len(gr):
+                assert np.array_equal(uniq_hashes[gr], vals), \
+                    "interval hash missing from postings hash table"
+            grank.append(gr)
+        mi_rank = (np.concatenate(
+            [grank[g][sl] for g, sl in zip(acc_mgid, acc_mh)])
+            if acc_mh else np.empty(0, np.int32)).astype(np.int32)
+        mi_wpos = _cat(acc_mb, np.int32)
+        mi_wend = _cat(acc_me, np.int32)
+        mi_strand = _cat(acc_ms, np.int8)
+        mi_seqid = _cat(acc_mseq, np.int32)
 
     # drop frequent seeds from the L2 interval table
     # (winSketch.hpp:497-504)
-    if is_frequent.any():
-        keep = ~is_frequent[mi_rank]
-        mi_rank, mi_wpos, mi_wend = (mi_rank[keep], mi_wpos[keep],
-                                     mi_wend[keep])
-        mi_strand, mi_seqid = mi_strand[keep], mi_seqid[keep]
+    with trace.span("build tail-filter"):
+        if is_frequent.any():
+            keep = ~is_frequent[mi_rank]
+            mi_rank, mi_wpos, mi_wend = (mi_rank[keep], mi_wpos[keep],
+                                         mi_wend[keep])
+            mi_strand, mi_seqid = mi_strand[keep], mi_seqid[keep]
 
     logger.info(
         "indexed %d contigs: %d minmer windows, %d unique minmers, "
@@ -932,17 +940,15 @@ def _classify_and_resolve(group, one_contig, order, threads, uniq_host,
 def _group_clock(group):
     """mark(label): the host seconds since the previous mark (or since
     this call), as a phase of the group that starts at contig
-    ``group[0]``, go into ``GROUP_PHASE_S`` and a DEBUG line."""
-    t = [time.perf_counter()]
+    ``group[0]``, go into ``GROUP_PHASE_S`` and a DEBUG line; a span
+    ``build <label>`` while recording (trace.py)."""
     gid = group[0][0]
     phases = GROUP_PHASE_S.setdefault(gid, {})
 
-    def mark(label):
-        now = time.perf_counter()
-        phases[label] = now - t[0]
-        logger.debug("group %d phase %-14s %.4fs", gid, label, now - t[0])
-        t[0] = now
-    return mark
+    def sink(label, seconds):
+        phases[label] = seconds
+        logger.debug("group %d phase %-14s %.4fs", gid, label, seconds)
+    return trace.clock("build ", sink)
 
 
 def _build_group_host(group: List[Tuple[int, str]], kmer_size: int,

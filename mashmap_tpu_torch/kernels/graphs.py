@@ -50,6 +50,7 @@ import weakref
 import numpy as np
 import torch
 
+from .. import trace
 from ..hostcopy import copy_into, to_device
 
 CAPTURES: dict = {}        # step name -> graphs captured
@@ -104,13 +105,15 @@ class _DeviceCache:
         sig = tuple((k, a.shape, a.dtype.str) for k, a in arrays.items())
         if sig != self.sig:
             self.drop()
-            self.tables = {k: to_device(a, self.device)
-                           for k, a in arrays.items()}
+            with trace.span("tables-upload"):
+                self.tables = {k: to_device(a, self.device)
+                               for k, a in arrays.items()}
             self.names = {id(t): k for k, t in self.tables.items()}
             self.sig = sig
         elif self.owner is None or self.owner() is not owner:
-            for k, a in arrays.items():
-                copy_into(self.tables[k], a)
+            with trace.span("tables-upload"):
+                for k, a in arrays.items():
+                    copy_into(self.tables[k], a)
         self.owner = weakref.ref(owner)
         return self.tables
 
@@ -182,7 +185,8 @@ def tables(device, owner, arrays: dict) -> dict:
     bind``); on the CPU the arrays themselves."""
     device = torch.device(device)
     if device.type != "cuda":
-        return {k: to_device(a, device) for k, a in arrays.items()}
+        with trace.span("tables-upload"):
+            return {k: to_device(a, device) for k, a in arrays.items()}
     return _cache(device).bind(owner, arrays)
 
 

@@ -31,7 +31,7 @@ from typing import IO, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import stats
+from .. import stats, trace
 from ..hostcopy import HostCopy, to_device
 from ..params import FIXED, Parameters, FILTER_MAP, FILTER_ONETOONE
 from ..index.builder import ReferenceIndex
@@ -131,6 +131,7 @@ class _Query:
 class _Batch:
     """One in-flight device batch of fragments."""
     frags: list
+    ordinal: int = 0            # the Mapper's batch count at dispatch
     mat: object = None          # (B, L) uint8 host matrix
     out: object = None          # l1_step packed meta, copying (HostCopy)
     qh_dev: object = None       # (B, s) sketch codes (device)
@@ -158,6 +159,7 @@ class Mapper:
     index is split across them (parallel/sharded_index.py).
     """
 
+    @trace.span("map setup")
     def __init__(self, params: Parameters, index: ReferenceIndex,
                  device=None, devices=None):
         self.p = params
@@ -175,12 +177,12 @@ class Mapper:
         self._cfg = None
         self.table_scale = max(
             1.0, params.sketch_size / FIXED.ss_table_max)
+        self.cutoff_table = None
         if params.stage1_topANI_filter:
-            self.cutoff_table = stats.sketch_cutoffs(
-                params.sketch_size, params.kmer_size,
-                params.ANIDiff, params.ANIDiffConf, FIXED.ss_table_max)
-        else:
-            self.cutoff_table = None
+            with trace.span("setup-cutoffs"):
+                self.cutoff_table = stats.sketch_cutoffs(
+                    params.sketch_size, params.kmer_size,
+                    params.ANIDiff, params.ANIDiffConf, FIXED.ss_table_max)
         self.ref_groups = self._set_ref_groups() \
             if params.skip_prefix else np.zeros(index.n_contigs, np.int64)
         self._min_hits_cache: dict[int, int] = {}
@@ -199,19 +201,18 @@ class Mapper:
                            "l2_buckets": {}}
         # host seconds of each map phase, summed over batches (_clock)
         self.phase_s: dict[str, float] = {}
+        self._batches = 0
 
-    def _clock(self):
+    def _clock(self, batch=None):
         """mark(label): the host seconds since the previous mark (or
         since this call) are logged as a map phase and added to
-        ``phase_s[label]``."""
-        t = [time.perf_counter()]
+        ``phase_s[label]``; a span ``map <label>`` of ``batch`` while
+        recording (trace.py)."""
+        return trace.clock("map ", self._phase, batch)
 
-        def mark(label):
-            now = time.perf_counter()
-            self.phase_s[label] = self.phase_s.get(label, 0.0) + now - t[0]
-            logger.debug("map phase %-13s %.4fs", label, now - t[0])
-            t[0] = now
-        return mark
+    def _phase(self, label: str, seconds: float) -> None:
+        self.phase_s[label] = self.phase_s.get(label, 0.0) + seconds
+        logger.debug("map phase %-13s %.4fs", label, seconds)
 
     @property
     def mi_key(self) -> np.ndarray:
@@ -578,14 +579,16 @@ class Mapper:
             self._host_tables = self._make_host_tables()
         if self._sharded is not None:
             if self._dev is None:
-                self._dev = {k: to_device(a, self.device)
-                             for k, a in self._host_tables.items()}
+                with trace.span("tables-upload"):
+                    self._dev = {k: to_device(a, self.device)
+                                 for k, a in self._host_tables.items()}
             return self._dev
         self._tables = {d: graphs.tables(d, self, self._host_tables)
                         for d in distinct(self.devices)}
         self._dev = self._tables[self.device]
         return self._dev
 
+    @trace.span("tables-host")
     def _make_host_tables(self):
         """The tables of _device_tables as numpy arrays (name -> array);
         builds the sharded index where one is asked for."""
@@ -654,6 +657,7 @@ class Mapper:
             n_groups=ng)
         return self._cfg
 
+    @trace.span("map prepare")
     def _prepare_query(self, q: _Query) -> None:
         q.u8 = kmers.sanitize(q.seq.encode("ascii"))
         q.allowed = self._allowed_mask(q)
@@ -678,7 +682,9 @@ class Mapper:
         from ..kernels.mapdev import l1_step
 
         p = self.p
-        mark = self._clock()
+        ordinal = self._batches
+        self._batches += 1
+        mark = self._clock(ordinal)
         dev = self._device_tables()
         mark("l1-tables")
         cfg = self._l1cfg()
@@ -712,8 +718,8 @@ class Mapper:
                     t["cutoff_table"], allowed[rows], t["ref_group"],
                     t["mi_key"]), cfg))
             out, qh_dev, qs_dev = (self._cat_rows(x) for x in zip(*parts))
-        ctx = _Batch(frags=frags, mat=mat[:B], out=HostCopy(out),
-                     qh_dev=qh_dev, qs_dev=qs_dev)
+        ctx = _Batch(frags=frags, ordinal=ordinal, mat=mat[:B],
+                     out=HostCopy(out), qh_dev=qh_dev, qs_dev=qs_dev)
         mark("l1-dispatch")
         return ctx
 
@@ -731,7 +737,7 @@ class Mapper:
         frags = ctx.frags
         B = len(frags)
         L = p.seg_length
-        mark = self._clock()
+        mark = self._clock(ctx.ordinal)
         meta = ctx.out.wait()
         mark("l1-wait")
         o = unpack_l1_meta(meta[:B], cfg.c_cap)
@@ -895,7 +901,7 @@ class Mapper:
         o = ctx.o
         host_l2_set = ctx.host_l2_set
         loci_by = {}
-        mark = self._clock()
+        mark = self._clock(ctx.ordinal)
         all_runs = ctx.pcat.wait() if ctx.pending else None
         need, pick = ctx.qh_pick
         qh_rows = [c.wait() for c in pick] if need else None
@@ -944,7 +950,8 @@ class Mapper:
         host_l2_set = ctx.host_l2_set
         loci_by = ctx.loci_by
         qh_host = ctx.qh_host
-        mark = self._clock()
+        mark = self._clock(ctx.ordinal)
+        l2_ns = n_l2 = 0
         out = []
         for i, fr in enumerate(ctx.frags):
             q = fr.q
@@ -980,20 +987,23 @@ class Mapper:
                 return loci_by.get((_i, j), [])
 
             if p.skip_prefix:
-                rows = []
                 groups: dict[int, list] = {}
                 for c in cands:
                     groups.setdefault(
                         int(self.ref_groups[c.seq_id]), []).append(c)
-                for gv in sorted(groups):
-                    rows.extend(self._do_l2(
-                        q, fr, hashes, strands, s_q, cx[i],
-                        groups[gv], loci_fn))
+                parts = [groups[gv] for gv in sorted(groups)]
             else:
-                rows = self._do_l2(q, fr, hashes, strands, s_q, cx[i],
-                                   cands, loci_fn)
+                parts = [cands]
+            rows = []
+            t0 = time.perf_counter_ns()
+            for part in parts:
+                rows.extend(self._do_l2(q, fr, hashes, strands, s_q, cx[i],
+                                        part, loci_fn))
+            l2_ns += time.perf_counter_ns() - t0
+            n_l2 += len(parts)
             rows.sort(key=lambda m: (m.ref_seq_id, m.ref_start))
             out.append((fr, rows))
+        trace.add("post-l2", l2_ns / 1e9, n_l2)
         mark("post")
         return out
 
@@ -1062,7 +1072,11 @@ class Mapper:
         def finalize_ready():
             while finalq and finalq[0].done == finalq[0].n_frags:
                 q = finalq.popleft()
-                self._emit(q, self._postprocess_query(q, q.rows), out)
+                with trace.span("map finalize"):
+                    with trace.span("merge-filter"):
+                        rows = self._postprocess_query(q, q.rows)
+                    with trace.span("emit"):
+                        self._emit(q, rows, out)
                 q.rows = q.u8 = q.allowed = None
 
         def complete(ctx):
@@ -1158,7 +1172,8 @@ class Mapper:
             """Owned queries in file order, maintaining the global
             counters, the one-to-one metadata and the meter's credit for
             queries another process maps."""
-            for name, seq in name_seq_stream():
+            for name, seq in trace.each("map query-wait",
+                                        name_seq_stream()):
                 qlen = len(seq)
                 if p.filter_mode == FILTER_ONETOONE:
                     self.qmetadata.append((name, qlen))

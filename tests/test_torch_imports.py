@@ -63,7 +63,6 @@ def test_port_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize("script", ["scripts/flagship_torch.py",
-                                    "scripts/map_stages.py",
                                     "chip_smoke.py", "bench_torch.py",
                                     "bench_extra_torch.py"])
 def test_port_scripts_import_neither(script):
