@@ -44,6 +44,7 @@ from . import l1 as l1_mod
 from . import l2 as l2_mod
 from . import filters, merge, output
 from .results import MappingResult
+from .rows import assemble, l2_tables, mapping_results
 
 logger = logging.getLogger("mashmap_tpu_torch.map")
 
@@ -139,14 +140,16 @@ class _Batch:
     stage: int = 0              # 0 = l1 dispatched, 1 = l2 dispatched
     o: object = None            # unpacked l1 meta (host)
     cx: object = None
-    host_frags: object = None   # set of batch-frag indices
-    host_l2_set: object = None  # set of (i, j)
-    pending: object = None      # [(chunk, nrows)]
+    host_frag: object = None    # (B,) bool: the fragment takes host L1
+    # the L2 work items, one a candidate (arrays; _collect_l1): frag,
+    # cand, lo, mid, hi, seq, inter, sq, and host (replayed on the host)
+    work: object = None
+    pending: object = None      # [(chunk of work items, nrows)]
     pcat: object = None         # concatenated l2 run buffers (HostCopy)
     # (frag indices, HostCopy pair of their sketch rows), gathered at
     # L2 dispatch for the host replay
     qh_pick: object = None
-    loci_by: object = None
+    loci: object = None         # the device loci (arrays; _collect_l2)
     qh_host: object = None
 
 
@@ -186,7 +189,11 @@ class Mapper:
         self.ref_groups = self._set_ref_groups() \
             if params.skip_prefix else np.zeros(index.n_contigs, np.int64)
         self._min_hits_cache: dict[int, int] = {}
-        self._ub_cache: dict[tuple, float] = {}
+        # doL2Mapping's per-locus values, shared by the process's Mappers
+        self.l2_tab = l2_tables(
+            params.kmer_size, params.sketch_size,
+            params.percentage_identity, params.keep_low_pct_id,
+            params.ANIDiff)
         self._name_arr = np.array(index.names)
         # one-to-one bookkeeping
         self.qmetadata: list[tuple[str, int]] = []
@@ -264,18 +271,6 @@ class Mapper:
                 s_q, self.p.kmer_size, self.p.percentage_identity,
                 FIXED.confidence_interval)
             self._min_hits_cache[s_q] = v
-        return v
-
-    def _identity_ub(self, shared: int, s_q: int) -> float:
-        key = (shared, s_q)
-        v = self._ub_cache.get(key)
-        if v is None:
-            mash_dist = stats.j2md(
-                float(np.float32(1.0) * np.float32(shared)
-                      / np.float32(s_q)), self.p.kmer_size)
-            v = 1.0 - stats.md_lower_bound(
-                mash_dist, s_q, self.p.kmer_size, FIXED.confidence_interval)
-            self._ub_cache[key] = v
         return v
 
     # ------------------------------------------------------------------
@@ -395,28 +390,22 @@ class Mapper:
         """doL2Mapping equivalent (computeMap.hpp:1181-1267).
 
         loci_fn(candidate) -> List[L2Locus] lets the device pipeline
-        supply precomputed trajectories.
+        supply precomputed trajectories. The arithmetic is the tables'
+        (rows.L2Tables), which the device route's rows.assemble applies
+        to whole batches.
         """
         p = self.p
-        k = p.kmer_size
+        tab = self.l2_tab
         if not cands:
             return []
         if p.stage1_topANI_filter:
             cands = sorted(cands, key=lambda c: -c.intersection)
-        best_jacc_num = 0.0
+        best_jacc_num = 0
         rows: List[MappingResult] = []
-        f32 = np.float32
         for c in cands:
-            if p.stage1_topANI_filter:
-                # float32 arithmetic mirrors the reference's `float` path
-                # (computeMap.hpp:1196-1201)
-                j_best = float(f32(best_jacc_num / s_q))
-                cutoff_ani = max(0.0, float(
-                    f32(f32(1.0) - f32(stats.j2md(j_best, k))
-                        - f32(p.ANIDiff))))
-                cutoff_j = float(f32(stats.md2j(1.0 - cutoff_ani, k)))
-                if float(c.intersection) / s_q < cutoff_j:
-                    break
+            if p.stage1_topANI_filter and \
+                    c.intersection < tab.cut1(best_jacc_num, s_q):
+                break
             if loci_fn is not None:
                 loci = loci_fn(c)
             else:
@@ -425,16 +414,11 @@ class Mapper:
                     c.seq_id, c.range_start, c.range_end,
                     p.seg_length, frag.window_len)
             for loc in loci:
-                mash_dist = stats.j2md(
-                    float(f32(1.0) * f32(loc.shared_sketch_size)
-                          / f32(s_q)), k)
-                nuc_id = float(f32(1) - f32(mash_dist))
-                nuc_id_ub = self._identity_ub(loc.shared_sketch_size, s_q)
-                if (p.keep_low_pct_id
-                        and nuc_id_ub >= p.percentage_identity) \
-                        or nuc_id >= p.percentage_identity:
+                nuc_id, nuc_id_ub, passes = tab.identity1(
+                    loc.shared_sketch_size, s_q)
+                if passes:
                     best_jacc_num = max(best_jacc_num,
-                                        float(loc.shared_sketch_size))
+                                        loc.shared_sketch_size)
                     m = MappingResult(
                         query_len=frag.q_len,
                         ref_start=loc.mean_optimal_pos,
@@ -745,46 +729,41 @@ class Mapper:
         ctx.o = o
 
         # complexity rescale for 'N'-padded fragments
-        cx = np.array([
-            float(o["complexity"][i]) * (L - p.kmer_size + 1)
-            / max(1, frags[i].q_len - p.kmer_size + 1)
-            for i in range(B)])
+        q_len = np.array([fr.q_len for fr in frags], np.int64)
+        cx = (o["complexity"].astype(np.float64) * (L - p.kmer_size + 1)
+              / np.maximum(1, q_len - p.kmer_size + 1))
         ctx.cx = cx
 
-        work = []
-        host_frags = set()
-        for i, fr in enumerate(frags):
-            if o["overflow"][i]:
-                host_frags.add(i)
-                self.path_stats["host_frags"] += 1
-                continue
-            if int(o["s_q"][i]) == 0 \
-                    or cx[i] < p.kmer_complexity_threshold:
-                continue
-            for j in range(int(o["n_cand"][i])):
-                work.append((i, j, int(o["cand_lo"][i, j]),
-                             int(o["cand_mid"][i, j]),
-                             int(o["cand_hi"][i, j])))
-        ctx.host_frags = host_frags
+        # one work item a candidate of every fragment that maps on the
+        # device, in (fragment, candidate) order
+        ctx.host_frag = o["overflow"].copy()
+        self.path_stats["host_frags"] += int(ctx.host_frag.sum())
+        live = ~ctx.host_frag & (o["s_q"] != 0) \
+            & (cx >= p.kmer_complexity_threshold)
+        i, j = np.nonzero(live[:, None] & (
+            np.arange(cfg.c_cap)[None, :] < o["n_cand"][:, None]))
+        w = {"frag": i, "cand": j, "lo": o["cand_lo"][i, j],
+             "mid": o["cand_mid"][i, j], "hi": o["cand_hi"][i, j],
+             "seq": o["cand_seq"][i, j], "inter": o["cand_inter"][i, j],
+             "sq": o["s_q"][i]}
         mark("l1-fetch")
 
-        # bucket work items by interval-slice length; W*T stays constant
+        # bucket work items by interval-slice length; W*T stays constant;
+        # a slice over the top bucket replays on the host
         AREA = p.l2_batch * p.l2_entries_cap // 2
         t_buckets = (T_BUCKETS_SHARDED if self._sharded is not None
                      else T_BUCKETS)
-        buckets: dict[int, list] = {t: [] for t in t_buckets}
-        host_l2_set = set()
-        for w in work:
-            span = w[4] - w[2]
-            for t in t_buckets:
-                if span <= t:
-                    buckets[t].append(w)
-                    self.path_stats["l2_buckets"][t] = \
-                        self.path_stats["l2_buckets"].get(t, 0) + 1
-                    break
-            else:
-                host_l2_set.add((w[0], w[1]))
-                self.path_stats["host_l2"] += 1
+        bucket = np.searchsorted(np.asarray(t_buckets), w["hi"] - w["lo"])
+        buckets = {}
+        for b, t in enumerate(t_buckets):
+            buckets[t] = np.nonzero(bucket == b)[0]
+            if len(buckets[t]):
+                self.path_stats["l2_buckets"][t] = \
+                    self.path_stats["l2_buckets"].get(t, 0) \
+                    + len(buckets[t])
+        w["host"] = bucket == len(t_buckets)
+        self.path_stats["host_l2"] += int(w["host"].sum())
+        ctx.work = w
         if self._sharded is not None:
             pending = self._l2_sharded(ctx, buckets, AREA)
         else:
@@ -799,25 +778,27 @@ class Mapper:
         # host-replay sketch rows known now: gathered right behind this
         # batch's L2 chunks; a gather started in _collect_l2 would queue
         # behind later batches' l1_step and L2 work and wait for it
-        need = sorted({i for (i, _j) in host_l2_set})
+        need = np.unique(w["frag"][w["host"]]).tolist()
         ctx.qh_pick = (need, _gather_sketch_rows(
             ctx.qh_dev, ctx.qs_dev, need) if need else None)
-        ctx.host_l2_set = host_l2_set
         ctx.stage = 1
         mark("l2-dispatch")
 
     @staticmethod
-    def _work_arrays(items, o, Wp: int, row0: int = 0):
-        """L2 call inputs of up to Wp work items: (4, Wp) int32 lo, mid,
-        hi (rebased by row0) and seq; owning fragment; s_q (pads 1)."""
+    def _work_arrays(items, w, Wp: int, row0: int = 0):
+        """L2 call inputs of the work items ``items`` (up to Wp): (4, Wp)
+        int32 lo, mid, hi (rebased by row0) and seq; owning fragment;
+        s_q (pads 1)."""
+        n = len(items)
         wa = np.zeros((4, Wp), np.int32)
         fidx = np.zeros(Wp, np.int64)
         sqv = np.ones(Wp, np.int32)
-        for r, (i, j, lo, mid, hi) in enumerate(items):
-            wa[:, r] = (lo - row0, mid - row0, hi - row0,
-                        int(o["cand_seq"][i, j]))
-            fidx[r] = i
-            sqv[r] = o["s_q"][i]
+        wa[0, :n] = w["lo"][items] - row0
+        wa[1, :n] = w["mid"][items] - row0
+        wa[2, :n] = w["hi"][items] - row0
+        wa[3, :n] = w["seq"][items]
+        fidx[:n] = w["frag"][items]
+        sqv[:n] = w["sq"][items]
         return wa, fidx, sqv
 
     def _l2_replicated(self, ctx: _Batch, buckets, AREA: int):
@@ -833,7 +814,7 @@ class Mapper:
             for w0 in range(0, len(todo), W_STEP):
                 chunk = todo[w0:w0 + W_STEP]
                 Wp = W_SMALL if len(chunk) <= W_SMALL else W_STEP
-                wa, fidx, sqv = self._work_arrays(chunk, ctx.o, Wp)
+                wa, fidx, sqv = self._work_arrays(chunk, ctx.work, Wp)
                 parts = []
                 for d, rows in self._row_blocks(Wp):
                     t = self._tables[d]
@@ -853,31 +834,31 @@ class Mapper:
         item routes to the shard whose slab holds its slice (bounds
         rebased to slab rows), one round of up to W_STEP items a shard
         per call (a quarter-width call where every shard's share fits);
-        pad rows are None in the chunk. Returns [(chunk, run buffer)]."""
+        pad rows are -1 in the chunk. Returns [(chunk, run buffer)]."""
         from ..parallel.sharded_index import l2_step_sharded
         p = self.p
         si = self._sharded
         n_sh = si.n_shards
         bnds = si.mi_bounds
+        w = ctx.work
         pending = []
         for T, todo in buckets.items():
             W_STEP, W_SMALL = _l2_widths(AREA, T, p.sketch_size)
-            by_owner = [[] for _ in range(n_sh)]
-            for w in todo:
-                d = int(np.searchsorted(bnds, w[2], side="right")) - 1
-                by_owner[min(max(d, 0), n_sh - 1)].append(w)
+            owner = np.clip(np.searchsorted(bnds, w["lo"][todo],
+                                            side="right") - 1, 0, n_sh - 1)
+            by_owner = [todo[owner == d] for d in range(n_sh)]
             rounds = max((len(x) + W_STEP - 1) // W_STEP for x in by_owner)
             for r in range(rounds):
                 share = [x[r * W_STEP:(r + 1) * W_STEP] for x in by_owner]
                 Wp = (W_SMALL if max(len(x) for x in share) <= W_SMALL
                       else W_STEP)
-                chunk = [None] * (n_sh * Wp)
+                chunk = np.full(n_sh * Wp, -1, np.int64)
                 args = []
                 for d, dev in enumerate(si.devices):
                     items = share[d]
                     chunk[d * Wp:d * Wp + len(items)] = items
                     wa, fidx, sqv = self._work_arrays(
-                        items, ctx.o, Wp, int(bnds[d]))
+                        items, w, Wp, int(bnds[d]))
                     wd = to_device(wa, dev)
                     fi = to_device(fidx, self.device)
                     args.append((wd[0], wd[1], wd[2], wd[3],
@@ -891,45 +872,45 @@ class Mapper:
         return pending
 
     def _collect_l2(self, ctx: _Batch):
-        """Stage 3: pick up the l2 run buffers and the host-replay
-        sketch rows. Rows known at dispatch were gathered in
-        _collect_l1; fragments whose L2 overflowed only here need a
-        second small gather."""
-        from ..kernels.mapdev import unpack_l2_runs
+        """Stage 3: pick up the l2 run buffers, decode every chunk's runs
+        into loci at once (l2.loci_arrays), and the host-replay sketch
+        rows. Rows known at dispatch were gathered in _collect_l1; items
+        whose runs overflowed on the device replay on the host too, and
+        their fragments' rows need a second small gather here."""
+        from ..kernels.mapdev import L2_RUN_CAP, unpack_l2_runs
 
         p = self.p
-        o = ctx.o
-        host_l2_set = ctx.host_l2_set
-        loci_by = {}
+        w = ctx.work
         mark = self._clock(ctx.ordinal)
-        all_runs = ctx.pcat.wait() if ctx.pending else None
+        all_runs = ctx.pcat.wait() if ctx.pending else np.zeros(
+            (0, 3 + 3 * L2_RUN_CAP), np.int32)
         need, pick = ctx.qh_pick
         qh_rows = [c.wait() for c in pick] if need else None
         mark("l2-wait")
+        item = np.full(sum(n for _, n in ctx.pending), -1, np.int64)
         row0 = 0
         for chunk, nrows in ctx.pending:
-            n_runs, best, r_ovf, starts, ends, strands = \
-                unpack_l2_runs(all_runs[row0:row0 + nrows])
+            item[row0:row0 + len(chunk)] = chunk
             row0 += nrows
-            for r, item in enumerate(chunk):
-                if item is None:       # sharded-routing pad row
-                    continue
-                i, j = item[:2]
-                if r_ovf[r]:
-                    host_l2_set.add((i, j))
-                    continue
-                loci_by[(i, j)] = l2_mod.loci_from_runs(
-                    n_runs[r], best[r], starts[r], ends[r],
-                    strands[r], int(o["cand_seq"][i, j]),
-                    p.seg_length)
+        # rows past a chunk's items, or -1 in it, are padding
+        n_runs, best, r_ovf, starts, ends, strands = unpack_l2_runs(all_runs)
+        w["host"][item[(item >= 0) & r_ovf]] = True
+        keep = np.nonzero((item >= 0) & ~r_ovf)[0]
+        row, o_start, o_end, pos, shared, strand = l2_mod.loci_arrays(
+            n_runs[keep], best[keep], starts[keep], ends[keep],
+            strands[keep], p.seg_length)
+        it = item[keep][row]
+        by = np.argsort(it, kind="stable")
+        ctx.loci = {"item": it[by], "start": o_start[by], "end": o_end[by],
+                    "pos": pos[by], "shared": shared[by],
+                    "strand": strand[by], "seq": w["seq"][it[by]]}
         ctx.pending = ctx.pcat = None
-        ctx.loci_by = loci_by
 
         # sketch rows only for fragments whose L2 replays on the host
         qh_host = {i: (qh_rows[0][t], qh_rows[1][t])
                    for t, i in enumerate(need)}
         ctx.qh_pick = None
-        late = sorted({i for (i, _j) in host_l2_set} - set(need))
+        late = np.setdiff1d(w["frag"][w["host"]], need).tolist()
         if late:
             qh_l, qs_l = (c.wait() for c in _gather_sketch_rows(
                 ctx.qh_dev, ctx.qs_dev, late))
@@ -940,36 +921,83 @@ class Mapper:
         mark("l2-fetch")
 
     def _post_batch(self, ctx: _Batch):
-        """Stage 4: per-fragment row assembly with exact pruning
-        semantics. Returns [(fragment, rows)] in batch order."""
+        """Stage 4: row assembly with exact pruning semantics. The
+        device route's candidates and loci go through rows.assemble as
+        the batch's arrays (total ``post-l2``, counted in segments);
+        fragments with a host route, host L1 or an L2 item replayed on
+        the host, run _do_l2 a group at a time, where its lazy top-ANI
+        break spares host L2 work (total ``post-l2-scalar``, counted in
+        fragments). Returns [(fragment, rows)] in batch order."""
+        p = self.p
+        o, w, loc, frags = ctx.o, ctx.work, ctx.loci, ctx.frags
+        B = len(frags)
+        mark = self._clock(ctx.ordinal)
+        t0 = time.perf_counter_ns()
+        scalar = ctx.host_frag.copy()
+        scalar[w["frag"][w["host"]]] = True
+        out = [[] for _ in range(B)]
+
+        # every work item through the arrays; the rows of the fragments
+        # that take _do_l2 are dropped
+        li, nuc, ub, n_seg = assemble(
+            self.l2_tab, p.stage1_topANI_filter, w["frag"],
+            self.ref_groups[w["seq"]] if p.skip_prefix
+            else np.zeros(len(w["seq"]), np.int64),
+            w["inter"], w["sq"], loc["item"], loc["shared"], loc["seq"],
+            loc["pos"])
+        r_frag = w["frag"][loc["item"][li]]
+        mine = ~scalar[r_frag]
+        li, r_frag, nuc, ub = li[mine], r_frag[mine], nuc[mine], ub[mine]
+        q_len = np.array([fr.q_len for fr in frags], np.int64)
+        counter = np.array([fr.q.counter for fr in frags], np.int64)
+        ms = mapping_results(
+            q_len[r_frag], loc["pos"][li], loc["seq"][li], counter[r_frag],
+            nuc, ub, o["s_q"][r_frag], loc["shared"][li], loc["strand"][li],
+            ctx.cx[r_frag])
+        cut = np.searchsorted(r_frag, np.arange(B + 1)).tolist()
+        for i in np.unique(r_frag).tolist():
+            out[i] = ms[cut[i]:cut[i + 1]]
+        t1 = time.perf_counter_ns()
+        trace.add("post-l2", (t1 - t0) / 1e9, n_seg)
+
+        sc = np.nonzero(scalar)[0].tolist()
+        if sc:
+            self._post_scalar(ctx, sc, out)
+            trace.add("post-l2-scalar",
+                      (time.perf_counter_ns() - t1) / 1e9, len(sc))
+        mark("post")
+        return list(zip(frags, out))
+
+    def _post_scalar(self, ctx: _Batch, sc, out) -> None:
+        """Rows of the fragments ``sc`` into ``out``: host L1 fragments
+        through _map_fragment, fragments with an L2 item replayed on the
+        host through _do_l2 a group at a time, the replay made lazily."""
         from ..kernels.sketch import sketch_sequence_py
 
         p = self.p
-        o = ctx.o
-        cx = ctx.cx
-        host_l2_set = ctx.host_l2_set
-        loci_by = ctx.loci_by
-        qh_host = ctx.qh_host
-        mark = self._clock(ctx.ordinal)
-        l2_ns = n_l2 = 0
-        out = []
-        for i, fr in enumerate(ctx.frags):
+        o, w, cx = ctx.o, ctx.work, ctx.cx
+        host = {(i, j) for i, j in zip(w["frag"][w["host"]].tolist(),
+                                       w["cand"][w["host"]].tolist())}
+        loci_by: dict = {}
+        loc = ctx.loci
+        mine = np.isin(w["frag"][loc["item"]], sc)
+        for it, *f in zip(*(loc[k][mine].tolist() for k in (
+                "item", "seq", "pos", "start", "end", "shared", "strand"))):
+            loci_by.setdefault(
+                (int(w["frag"][it]), int(w["cand"][it])), []).append(
+                l2_mod.L2Locus(*f))
+        for i in sc:
+            fr = ctx.frags[i]
             q = fr.q
-            if i in ctx.host_frags:
+            if ctx.host_frag[i]:
                 oh, ostr, ocnt, ocx = sketch_sequence_py(
                     ctx.mat[i, :fr.q_len], p.kmer_size, p.sketch_size)
-                out.append((fr, self._map_fragment(
-                    q, fr, oh, ostr, ocnt, ocx, q.allowed, q.qg)))
+                out[i] = self._map_fragment(
+                    q, fr, oh, ostr, ocnt, ocx, q.allowed, q.qg)
                 continue
             s_q = int(o["s_q"][i])
-            if s_q == 0 or cx[i] < p.kmer_complexity_threshold:
-                out.append((fr, []))
-                continue
-            if i in qh_host:
-                hashes = qh_host[i][0][:s_q]
-                strands = qh_host[i][1][:s_q].astype(np.int64)
-            else:       # only consumed on host-L2 replay, never here
-                hashes = strands = None
+            hashes = ctx.qh_host[i][0][:s_q]
+            strands = ctx.qh_host[i][1][:s_q].astype(np.int64)
             cands = [
                 l1_mod.L1Candidate(
                     int(o["cand_seq"][i, j]), int(o["cand_start"][i, j]),
@@ -979,7 +1007,7 @@ class Mapper:
 
             def loci_fn(c, _i=i, _cand_j=cand_j, _h=hashes, _s=strands):
                 j = _cand_j[id(c)]
-                if (_i, j) in host_l2_set:
+                if (_i, j) in host:
                     return l2_mod.l2_mapped_regions(
                         self.idx, self.mi_key, _h, _s, c.seq_id,
                         c.range_start, c.range_end, p.seg_length, 0,
@@ -995,17 +1023,11 @@ class Mapper:
             else:
                 parts = [cands]
             rows = []
-            t0 = time.perf_counter_ns()
             for part in parts:
                 rows.extend(self._do_l2(q, fr, hashes, strands, s_q, cx[i],
                                         part, loci_fn))
-            l2_ns += time.perf_counter_ns() - t0
-            n_l2 += len(parts)
             rows.sort(key=lambda m: (m.ref_seq_id, m.ref_start))
-            out.append((fr, rows))
-        trace.add("post-l2", l2_ns / 1e9, n_l2)
-        mark("post")
-        return out
+            out[i] = rows
 
     def _filter_by_group(self, rows: List[MappingResult], n_mappings: int,
                          filter_ref: bool) -> List[MappingResult]:

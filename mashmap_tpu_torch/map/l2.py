@@ -232,7 +232,8 @@ def loci_from_runs(n_runs: int, best: int, starts, ends, strands,
     Host half of the split plateau walk: kernels/mapdev.py extracts the
     (<= L2_RUN_CAP) maximal shared==best runs on device; this merges
     runs closer than segLength (computeMap.hpp:1430-1446 semantics,
-    window_len == 0 path).
+    window_len == 0 path). One item at a time: the rule that
+    ``loci_arrays`` applies to whole run buffers.
     """
     out: List[L2Locus] = []
     for i in range(int(n_runs)):
@@ -251,6 +252,39 @@ def loci_from_runs(n_runs: int, best: int, starts, ends, strands,
                 strand=int(strands[i]),
             ))
     return out
+
+
+def loci_arrays(n_runs, best, starts, ends, strands, seg_length: int):
+    """``loci_from_runs`` over (R, L) run arrays at once.
+
+    A locus opens at a row's first run and wherever a run starts more
+    than seg_length after the previous run's end (the open locus's
+    optimal_end is always the previous run's end); it keeps its first
+    run's start and strand and its last run's end. Returns the loci's
+    (row, optimal_start, optimal_end, mean_optimal_pos, shared, strand),
+    by row and then in order.
+    """
+    starts = np.asarray(starts, np.int64)
+    ends = np.asarray(ends, np.int64)
+    L = starts.shape[1]
+    n_runs = np.minimum(np.asarray(n_runs, np.int64), L)
+    opens = np.arange(L)[None, :] < n_runs[:, None]
+    opens[:, 1:] &= starts[:, 1:] > ends[:, :-1] + seg_length
+    row, col = np.nonzero(opens)
+    # a locus's last run: the one before the next opening of its row,
+    # else the row's last run
+    n_open = opens.sum(axis=1)
+    last = np.empty(len(row), np.int64)
+    last[:-1] = col[1:] - 1
+    row_end = np.cumsum(n_open)[n_open > 0] - 1
+    last[row_end] = n_runs[row[row_end]] - 1
+    o_start = starts[row, col]
+    o_end = ends[row, last]
+    # C++'s division by 2 truncates toward zero (_c_div2)
+    tot = o_start + o_end
+    mean = np.where(tot < 0, -((-tot) // 2), tot // 2)
+    return (row, o_start, o_end, mean, np.asarray(best, np.int64)[row],
+            np.asarray(strands, np.int64)[row, col])
 
 
 def plateau_loci(shared, votes, wpos_main, next_wpos, seq_id: int,

@@ -20,7 +20,7 @@ from mashmap_tpu.index import builder as jb
 from mashmap_tpu.index.builder import build_index as jax_build_index
 from mashmap_tpu.map.engine import Mapper as JaxMapper
 from mashmap_tpu.params import Parameters as JaxParameters
-from mashmap_tpu_torch import hostcopy
+from mashmap_tpu_torch import hostcopy, trace
 from mashmap_tpu_torch.api import map_files
 from mashmap_tpu_torch.index import builder as tb
 from mashmap_tpu_torch.map import engine
@@ -152,14 +152,32 @@ def test_pipelined_host_routes_and_gathers(tmp_path, monkeypatch):
     m = Mapper(Parameters(l1_postings_cap=40, batch_fragments=BATCH,
                           **kw).finalize(), idx, device="cpu")
     out = io.StringIO()
-    m.run([q_fa], out)
+    with trace.recording() as rec:
+        m.run([q_fa], out)
     st = m.path_stats
     assert out.getvalue() == want
     assert st["host_frags"] > 0 and st["host_l2"] > 0, st
+    # the host-route fragments took the scalar _do_l2, the others the
+    # array path
+    assert rec.totals["post-l2-scalar"][1] > 0
+    assert rec.totals["post-l2"][1] > 0
     assert {"_collect_l1", "_collect_l2"} <= set(gathers), gathers
     assert set(m.phase_s) == {"l1-tables", "l1-dispatch", "l1-wait",
                               "l1-fetch", "l2-dispatch", "l2-wait",
                               "l2-fetch", "post"}
+
+
+def test_plain_pipelined_map_takes_no_scalar_post(pair):
+    """Without a host route the pipelined map's rows all come from the
+    array path: ``post-l2`` counts its segments, ``post-l2-scalar`` no
+    fragment."""
+    ref, qf, _ = pair
+    p = Parameters(ref_sequences=[ref], query_sequences=[qf],
+                   out_file_name=os.devnull, **SMALL)
+    with trace.recording() as rec:
+        map_files(p, device="cpu")
+    assert rec.totals["post-l2"][1] > 0
+    assert rec.totals.get("post-l2-scalar", (0.0, 0))[1] == 0
 
 
 def test_meter_credits_every_base_once(pair, monkeypatch):
