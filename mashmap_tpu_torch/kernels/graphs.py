@@ -206,7 +206,8 @@ def call(device, step, args, *static):
     with torch.cuda.device(device):
         g = c.graphs.get(key)
         if g is None:
-            g = c.graphs[key] = c.capture(step, args, static)
+            with trace.span("graph capture"):
+                g = c.graphs[key] = c.capture(step, args, static)
             CAPTURES[name] = CAPTURES.get(name, 0) + 1
         REPLAYS[name] = REPLAYS.get(name, 0) + 1
         return g.replay(args)

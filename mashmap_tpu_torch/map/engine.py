@@ -675,11 +675,12 @@ class Mapper:
         B = len(frags)
         Bp = _batch_pad_rows(B, p.batch_fragments, self._n_dev)
         L = p.seg_length
-        mat = np.full((Bp, L), ord("N"), np.uint8)
-        allowed = np.zeros((Bp, self.idx.n_contigs), bool)
-        for i, fr in enumerate(frags):
-            mat[i, :fr.q_len] = fr.q.u8[fr.q_start:fr.q_start + fr.q_len]
-            allowed[i] = True if fr.q.allowed is None else fr.q.allowed
+        with trace.span("l1-pack"):
+            mat = np.full((Bp, L), ord("N"), np.uint8)
+            allowed = np.zeros((Bp, self.idx.n_contigs), bool)
+            for i, fr in enumerate(frags):
+                mat[i, :fr.q_len] = fr.q.u8[fr.q_start:fr.q_start + fr.q_len]
+                allowed[i] = True if fr.q.allowed is None else fr.q.allowed
         if self._sharded is not None:
             from ..parallel.sharded_index import l1_step_sharded
             si = self._sharded
@@ -754,8 +755,13 @@ class Mapper:
         t_buckets = (T_BUCKETS_SHARDED if self._sharded is not None
                      else T_BUCKETS)
         bucket = np.searchsorted(np.asarray(t_buckets), w["hi"] - w["lo"])
+        # largest T first: a device's first L2 capture is then its
+        # largest, and the smaller shapes' captures fit in the pool
+        # segments it made. Smallest first, a job whose first batch holds
+        # a short slice reserved 1.82 GiB more at s = 310. Results are
+        # put back in item order, so the order changes no output.
         buckets = {}
-        for b, t in enumerate(t_buckets):
+        for b, t in reversed(list(enumerate(t_buckets))):
             buckets[t] = np.nonzero(bucket == b)[0]
             if len(buckets[t]):
                 self.path_stats["l2_buckets"][t] = \

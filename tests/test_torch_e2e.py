@@ -154,6 +154,35 @@ def test_host_routes_paf_identical(tmp_path):
     assert st_low["host_frags"] > 0, st_low
 
 
+def test_l2_buckets_dispatch_largest_slice_first(tmp_path, monkeypatch):
+    """Each batch calls l2_step for its buckets largest T first, so that
+    a device's first L2 capture is its largest, whichever buckets the
+    job's first batch holds."""
+    from mashmap_tpu_torch.kernels import graphs
+    contigs, queries = _repeat_workload()
+    q_fa = str(tmp_path / "q.fa")
+    write_fasta(q_fa, queries)
+    calls = []
+    call = graphs.call
+
+    def record(device, step, args, *static):
+        calls.append(static[0] if step.__name__ == "l2_step" else None)
+        return call(device, step, args, *static)
+    monkeypatch.setattr(graphs, "call", record)
+    idx = build_index(contigs, 11, 500, 24, device="cpu")
+    m = Mapper(Parameters(ref_sequences=[q_fa], query_sequences=[q_fa],
+                          out_file_name="-", kmer_size=11, seg_length=500,
+                          sketch_size=24, percentage_identity=0.85,
+                          num_mappings_for_segment=3,
+                          no_progress=True).finalize(), idx, device="cpu")
+    m.run([q_fa], io.StringIO())
+    assert len(m.path_stats["l2_buckets"]) >= 2, m.path_stats
+    batches = "".join("|" if t is None else f"{t}," for t in calls)
+    runs = [[int(t) for t in b.split(",") if t] for b in batches.split("|")]
+    assert any(len(set(r)) >= 2 for r in runs), runs
+    assert all(r == sorted(r, reverse=True) for r in runs), runs
+
+
 def test_sketch_size_above_512_paf_identical(tmp_path):
     """A self-map at s = 520, above theta.cu's S_MAX (a 6 Mbp reference
     at --pi 78 gets s = 680), with the cutoff table off on both sides

@@ -3,8 +3,10 @@ under the right parent with their thread, job and batch on the exported
 clock; a CPU ``map_files`` job under ``recording()`` yields every span
 the program marks, its top-level spans cover the job, and its map phase
 spans are ``Mapper.phase_s``; with recording off nothing is kept and the
-phase labels are those ``tests/test_torch_pipeline.py`` pins; the CLI's
-``--traceDir`` trace shows the spans."""
+phase labels are those ``tests/test_torch_pipeline.py`` pins; a batch's
+``l1-pack`` span lies inside its ``l1-dispatch`` phase and changes no
+phase; a graph capture on a card is a span; the CLI's ``--traceDir``
+trace shows the spans."""
 
 import json
 import os
@@ -14,10 +16,12 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from mashmap_tpu_torch import cli, trace
 from mashmap_tpu_torch.api import map_files
 from mashmap_tpu_torch.index import builder
+from mashmap_tpu_torch.kernels import graphs
 from mashmap_tpu_torch.map import engine
 from mashmap_tpu_torch.params import Parameters
 
@@ -174,6 +178,51 @@ def test_map_phase_spans_sum_to_phase_s(job):
     assert set(got) == set(mapper.phase_s) == MAP_PHASES
     for label, sec in mapper.phase_s.items():
         assert abs(got[label] - sec) < 1e-3, (label, got[label], sec)
+
+
+def test_l1_pack_nests_in_l1_dispatch(job):
+    rec, _, _, (_, totals) = job
+    sp = rec.spans()
+    packs = [s for s in sp if s[0] == "l1-pack"]
+    dispatches = [s for s in sp if s[0] == "map l1-dispatch"]
+    assert len(packs) == len(dispatches) >= 3
+    assert all(sp[s[1]][0] == "map l1-dispatch" for s in packs)
+    assert {sp[s[1]][6] for s in packs} == {s[6] for s in dispatches}
+    assert totals["l1-pack"][1] == len(packs)
+
+
+def test_l1_pack_leaves_the_phases_as_they_were(job):
+    """``l1-pack`` is a span, not a phase: ``Mapper.phase_s`` keeps its
+    labels, and its ``l1-dispatch`` seconds hold the pack's."""
+    rec, _, mapper, _ = job
+    assert set(mapper.phase_s) == MAP_PHASES
+    sec = {}
+    for s in rec.spans():
+        sec[s[0]] = sec.get(s[0], 0.0) + (s[4] - s[3]) / 1e9
+    assert 0 < sec["l1-pack"] <= mapper.phase_s["l1-dispatch"]
+    assert abs(sum(sec[f"map {p}"] for p in MAP_PHASES)
+               - sum(mapper.phase_s.values())) < 1e-3
+
+
+@pytest.mark.cuda
+def test_graph_capture_is_a_span():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CPU graphs.call captures "
+                    "nothing")
+    device = torch.device("cuda", torch.cuda.current_device())
+
+    def step(a, k):
+        return a * 2 + k
+    graphs.clear(device)
+    try:
+        with trace.recording() as rec:
+            first = graphs.call(device, step, (np.arange(8),), 1)
+            again = graphs.call(device, step, (np.arange(8),), 1)
+        assert [s[0] for s in rec.spans()].count("graph capture") == 1
+        assert rec.totals["graph capture"][1] == 1
+        assert first.tolist() == again.tolist() == list(range(1, 17, 2))
+    finally:
+        graphs.clear(device)
 
 
 def test_off_path_keeps_no_span_and_the_labels_stay(tmp_path):
