@@ -23,23 +23,29 @@ import torch
 
 
 class HostCopy:
-    """A device-to-host copy of one tensor, started when it is made;
-    ``wait()`` returns the tensor as a numpy array."""
+    """A device-to-host copy of one tensor, or of a tuple of tensors
+    behind one event, started when it is made; ``wait()`` returns the
+    tensor as a numpy array, or the tuple as a tuple of them."""
 
-    def __init__(self, t: torch.Tensor):
+    def __init__(self, t):
         self._event = None
-        if t.device.type == "cuda":
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.copy_(t, non_blocking=True)
+        self._one = isinstance(t, torch.Tensor)
+        ts = (t,) if self._one else tuple(t)
+        if ts and ts[0].device.type == "cuda":
+            hosts = tuple(torch.empty(x.shape, dtype=x.dtype,
+                                      pin_memory=True) for x in ts)
+            for h, x in zip(hosts, ts):
+                h.copy_(x, non_blocking=True)
             self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(t.device))
-            t = host
-        self._host = t
+            self._event.record(torch.cuda.current_stream(ts[0].device))
+            ts = hosts
+        self._host = ts
 
-    def wait(self) -> np.ndarray:
+    def wait(self):
         if self._event is not None:
             self._event.synchronize()
-        return self._host.numpy()
+        out = tuple(x.numpy() for x in self._host)
+        return out[0] if self._one else out
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -13,9 +13,12 @@ pointer-based structures become sorted arrays:
 
 Per contig group the device runs hashing -> rank reduction -> theta
 (kernels/winnow.py, the hand-written theta kernel) -> membership events
-(kernels/events.py); one device->host copy brings the sparse events to
-the host, which pairs them and classifies strands on a worker thread
-while the next group's device phases run, then assembles the CSR.
+(kernels/events.py) -> their pairing, strand classification and u64
+resolution (``classify_group``); one device->host copy brings the
+group's final arrays to the host, where a worker thread splits them by
+contig while the next group's device phases run, then the host
+assembles the CSR. A contig over the rank limit takes the host route
+(``_build_group_host``), which classifies on the host.
 
 Known reference bugs deliberately not replicated (as in the JAX build):
 - addMinmers' heap refill can insert an expired k-mer after a partial
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import trace
+from ..hostcopy import HostCopy
 from ..kernels import events as events_mod
 from ..kernels import kmers, winnow
 from ..kernels.murmur import UMAX
@@ -540,7 +544,9 @@ def build_index(
     and resolves back to u64 hashes before the global postings merge.
     A single contig with more than ``rank_limit`` positions forms a
     group of its own and takes the host route (``_build_group_host``).
-    ``device`` defaults to CUDA (see utils.resolve_device).
+    ``device`` defaults to CUDA (see utils.resolve_device). ``threads``
+    (MashMap's ``-t``) is accepted and unused: the classification runs
+    on the device, and one worker thread overlaps the host's part.
     """
     device = resolve_device(device)
     GROUP_PHASE_S.clear()
@@ -572,15 +578,15 @@ def build_index(
             acc_ms.append(ms)
             acc_mseq.append(np.full(len(mh), seq_id, np.int32))
 
-    # Depth-2 group pipeline: group N's host pairing, classification and
-    # resolution run on a worker thread while group N+1's device phases
-    # (hash, rank, theta, events, their copy) run on this one; numpy's
-    # sorts release the interpreter lock. The reference overlaps the
+    # Depth-2 group pipeline: group N's host part runs on a worker thread
+    # while group N+1's device phases run on this one: a device group's
+    # wait for its final arrays' copy and their split by contig; the
+    # host route's pairing, classification and resolution (numpy's
+    # sorts release the interpreter lock). The reference overlaps the
     # same way with its per-contig thread pool (winSketch.hpp:165). The
-    # worker touches no device: each group's LUT values come to the host
-    # before the handoff, so no device memory outlives its group.
-    # Results are consumed strictly in group order; a worker's exception
-    # re-raises here through its future.
+    # worker launches no device work, so no device memory outlives its
+    # group. Results are consumed strictly in group order; a worker's
+    # exception re-raises here through its future.
     from concurrent.futures import ThreadPoolExecutor
     pending = None
 
@@ -594,8 +600,7 @@ def build_index(
 
     def run_group(ex, group, build=_build_group):
         nonlocal pending
-        host = build(group, kmer_size, window_size, sketch_size, threads,
-                     device)
+        host = build(group, kmer_size, window_size, sketch_size, device)
         flush_pending()
         pending = ex.submit(host)
 
@@ -712,17 +717,15 @@ def build_index(
     )
 
 
-def _resolve_group_hashes(results, uniq_host, lut_pair=None):
+def _resolve_group_hashes(results, uniq_host):
     """Map one group's rank-domain outputs out of the group-local domain.
 
     Looks up the group's u64 values only at the DISTINCT ranks that
-    survived into postings / minmer rows: in ``lut_pair`` = (sorted
-    ranks, their u64 values), the device route's LUT brought to the
-    host at the group's distinct begin ranks (a superset), or else in
-    the host route's ``uniq_host`` (u64 by rank). Returns ``(rows,
-    vals)``: postings hashes are resolved to u64, interval-row hashes
-    stay as SLOTS into ``vals`` (the group's sorted surviving u64
-    values).
+    survived into postings / minmer rows, in the host route's
+    ``uniq_host`` (u64 by rank; device groups resolve on the device,
+    ``classify_group``). Returns ``(rows, vals)``: postings hashes are
+    resolved to u64, interval-row hashes stay as SLOTS into ``vals``
+    (the group's sorted surviving u64 values).
     """
     u64e = np.empty(0, np.uint64)
     i32e = np.empty(0, np.int32)
@@ -735,17 +738,7 @@ def _resolve_group_hashes(results, uniq_host, lut_pair=None):
     seen[flat] = True
     uniq_r = np.flatnonzero(seen)
     slot = np.cumsum(seen, dtype=np.int32) - 1
-    if lut_pair is not None:
-        pr, pv = lut_pair
-        invp = np.full(int(pr[-1]) + 1 if len(pr) else 0, -1, np.int32)
-        invp[pr] = np.arange(len(pr), dtype=np.int32)
-        pos = invp[uniq_r]
-        if not (pos >= 0).all():
-            raise AssertionError(
-                "surviving ranks must be a subset of the prefetched LUT")
-        vals = pv[pos]
-    else:
-        vals = uniq_host[uniq_r]
+    vals = uniq_host[uniq_r]
     out = []
     for seq_id, (ph, pb, pe), (mh, mb, me, ms) in results:
         ph_u = vals[slot[ph]] if len(ph) else u64e
@@ -760,6 +753,259 @@ def _sort_rows(mh, mb, me, ms):
     o = np.argsort((mb.astype(np.uint64) << np.uint64(32))
                    | me.astype(np.uint64), kind="stable")
     return mh[o], mb[o], me[o], ms[o]
+
+
+_CLASSIFY_FAULTS = ("end event for unknown hash",
+                    "begin/end events must alternate per hash",
+                    "interval hash with no occurrence event at or before "
+                    "its begin")
+
+
+def _count(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """bincount(idx, minlength=n), idx < n, with no host sync."""
+    out = torch.zeros(n, dtype=torch.int64, device=idx.device)
+    return out.index_add_(0, idx, torch.ones_like(idx))
+
+
+def _first_of_runs(*keys) -> torch.Tensor:
+    """Mask of the elements that start a run of equal ``keys`` tuples."""
+    m = torch.ones(keys[0].shape[0], dtype=torch.bool,
+                   device=keys[0].device)
+    if m.shape[0] > 1:
+        m[1:] = torch.stack([k[1:] != k[:-1] for k in keys]).any(0)
+    return m
+
+
+def gather_lanes(chunks, device):
+    """The live lanes of a group's events_chunk calls, ``chunks`` =
+    [(contig index, (beg_h, beg_W, end_h, end_W, mem_rankstrand,
+    mem_pos))], as one tensor a lane, each pair of lanes with the contig
+    index of its elements: (beg contig, beg_h, beg_W, end contig, end_h,
+    end_W, mem contig, mem_rankstrand, mem_pos)."""
+    out = []
+    for j in (0, 2, 4):
+        cnt = [x[j].shape[0] for _, x in chunks]
+        out.append(torch.repeat_interleave(
+            torch.tensor([i for i, _ in chunks], dtype=torch.int32,
+                         device=device),
+            torch.tensor(cnt, dtype=torch.int64, device=device),
+            output_size=sum(cnt)))
+        for lane in (j, j + 1):
+            out.append(torch.cat([x[lane] for _, x in chunks]) if chunks
+                       else torch.empty(0, dtype=torch.int32,
+                                        device=device))
+    return tuple(out)
+
+
+def classify_group(lanes, ns, span: int, window_size: int,
+                   lut: torch.Tensor) -> torch.Tensor:
+    """A device group's membership events to its index arrays, on the
+    device: the NumPy chain ``_pair_begin_end`` -> ``strand_classify``
+    -> ``_chunk_long_intervals`` -> ``_sort_rows`` ->
+    ``_resolve_group_hashes`` of every contig at once, with the contig
+    in the keys.
+
+    ``lanes``: ``gather_lanes``'s; ``ns``: the positions of each contig
+    of the group, in order; ``lut``: the group's u64 values (int64 bits)
+    by rank. A contig's offset in the group is the sum of the positions
+    before it, so an offset plus a window index stays below the group's
+    positions (at most 2^30) and ranks below 2^30: (rank, offset + W)
+    packs into 60 bits. Group-wide orders keep each contig's own order
+    as a subsequence: intervals in (rank, contig, W) order; rows emitted
+    as plain intervals, split segments, final segments, then the chunks
+    of the long ones; one stable (contig, wb, we) sort.
+
+    Returns the tensors that ``split_group`` reads on the host: a fault
+    word, per-contig postings and row counts, the group's sorted
+    surviving u64 values, the postings (u64, wb, we) and the rows (slot
+    into the values, wb, we, strand), contig-major.
+    """
+    dev = lut.device
+    i64 = torch.int64
+    C = len(ns)
+    n_c = torch.tensor(ns, dtype=i64, device=dev)
+    off_c = torch.cumsum(n_c, 0) - n_c
+    fb = max(ns).bit_length()      # every W, wb, we and F below < 2^fb
+    M30 = (1 << 30) - 1
+    bo, bh, bw, eo, eh, ew, mo, mrk, mpos = lanes
+    # (each array is dropped once used, so the classify's working set
+    # fits in blocks the build's earlier phases reserved)
+
+    def by_rank_then_place(c, h, w):
+        """Events sorted by (rank, contig, W): rank, contig, W and the
+        (rank, contig) key, rank << 30 | contig offset."""
+        key, o = torch.sort((h.to(i64) << 30) | (off_c[c.long()] + w))
+        c = c[o].long()
+        off = off_c[c]
+        return key >> 30, c, (key & M30) - off, (key >> 30 << 30) | off
+
+    # --- pairing: the j-th begin of each (rank, contig) with its j-th
+    # end, unmatched begins flushed at the contig's n
+    iv_rank, iv_c, iv_wb, gk = by_rank_then_place(bo, bh, bw)
+    _, _, e_w, egk = by_rank_then_place(eo, eh, ew)
+    B, E = iv_rank.shape[0], e_w.shape[0]
+    newg = _first_of_runs(gk)
+    iv_g = torch.cumsum(newg, 0) - 1          # dense (rank, contig) id
+    starts = torch.nonzero(newg).squeeze(1)
+    ukey = gk[starts]
+    G = starts.shape[0]
+    del newg, gk
+    if G == 0:
+        if E:
+            raise AssertionError(_CLASSIFY_FAULTS[0])
+        e = torch.empty(0, dtype=i64, device=dev)
+        e32 = e.int()
+        return (torch.zeros((), dtype=i64, device=dev),
+                torch.zeros(2 * C, dtype=i64, device=dev), e, e, e32, e32,
+                e32, e32, e32, e32.to(torch.int8))
+
+    def group_of(key):
+        """Dense id of each (rank, contig) key, and whether a begin
+        group has it."""
+        g = torch.searchsorted(ukey, key).clamp_(max=G - 1)
+        return g, ukey[g] == key
+
+    e_g, known = group_of(egk)
+    del egk
+    faults = (~known).any().long()
+    e_cnt = _count(e_g, G)
+    slack = torch.diff(starts, append=starts.new_tensor([B])) - e_cnt
+    faults |= ((slack < 0) | (slack > 1)).any().long() << 1
+    j = torch.arange(B, device=dev) - starts[iv_g]
+    e_at = (torch.cumsum(e_cnt, 0) - e_cnt)[iv_g] + j
+    iv_we = torch.where(j < e_cnt[iv_g],
+                        torch.cat([e_w, e_w.new_zeros(1)])[
+                            e_at.clamp_(max=E)],
+                        n_c[iv_c])
+    del e_g, known, e_cnt, slack, j, e_at, e_w, starts
+
+    # --- strand votes: enter (t = 1) and leave (t = 0) events of the
+    # member occurrences of begin groups, in (g, F, t, d) order
+    m_g, hit = group_of(((mrk.to(i64) >> 1) << 30) | off_c[mo.long()])
+    m_g = m_g[hit]
+    up = (mrk[hit] & 1).to(i64)
+    f = mpos[hit].to(i64) + 1
+    leave = f < n_c[mo[hit].long()] - span + 1
+    sh = fb + 2
+    ev = torch.sort(torch.cat([
+        (m_g << sh) | (f << 2) | 2 | up,
+        (m_g[leave] << sh) | ((f[leave] + span) << 2) | (1 - up[leave]),
+    ])).values
+    del m_g, hit, up, f, leave
+    if ev.shape[0] == 0:
+        raise AssertionError(_CLASSIFY_FAULTS[2])
+    ev_g = ev >> sh
+    d = (ev & 1) * 2 - 1
+    ev_w = (((ev >> 2) & ((1 << fb) - 1)) - span).clamp_(min=0)
+    ev_key = (ev_g << (fb + 1)) | (ev_w << 1) | ((ev >> 1) & 1)
+    del ev
+    # each group's running vote: the global cumsum less its value
+    # before the group's first event
+    excl = torch.cumsum(d, 0) - d
+    v_before = excl - excl[torch.searchsorted(ev_g, ev_g)]
+    v_after = v_before + d
+    del excl, d
+    cc = (v_before < 0) != (v_after < 0)
+
+    # each interval's events: W in [wb + 1, we); the event before them
+    # is its group's last at or before wb
+    gpart = iv_g << (fb + 1)
+    lo = torch.searchsorted(ev_key, gpart + (iv_wb + 1) * 2)
+    hi = torch.searchsorted(ev_key, gpart + iv_we * 2)
+    i0 = (lo - 1).clamp_(min=0)
+    faults |= ((lo == 0) | (ev_g[i0] != iv_g)).any().long() << 2
+    v0 = v_after[i0]
+    del gpart, ev_key, ev_g, i0, iv_g
+    cc_cum = torch.cat([cc.new_zeros(1, dtype=i64), torch.cumsum(cc, 0)])
+    plain = cc_cum[hi] == cc_cum[lo]
+    del cc_cum
+
+    # --- sign-class splits: the class changes inside flagged intervals
+    # (ranges are disjoint and ascending: an event's interval is the
+    # last whose range starts at or before it)
+    e = torch.nonzero(cc).squeeze(1)
+    own = torch.searchsorted(lo, e, right=True) - 1
+    inside = own >= 0
+    own.clamp_(min=0)
+    inside &= e < hi[own]
+    r_iv, e = own[inside], e[inside]
+    del cc, own, inside, lo
+    r_t, r_vb = ev_w[e], v_before[e]
+    first = _first_of_runs(r_iv, r_t)
+    r_iv, r_t, r_vb = r_iv[first], r_t[first], r_vb[first]
+    lead = _first_of_runs(r_iv)
+    seg_b = torch.where(lead, iv_wb[r_iv], torch.roll(r_t, 1))
+    last = torch.roll(lead, -1)
+    lb_iv, lb_t = r_iv[last], r_t[last]
+    v_fin = v_after[hi[lb_iv] - 1]
+    keep = iv_we[lb_iv] > lb_t
+    fin = lb_iv[keep]
+    pl = torch.nonzero(plain).squeeze(1)
+    src = torch.cat([pl, r_iv, fin])          # each row's interval
+    r_wb = torch.cat([iv_wb[pl], seg_b, lb_t[keep]])
+    r_we = torch.cat([iv_we[pl], r_t, iv_we[fin]])
+    neg = torch.cat([v0[pl] < 0, r_vb < 0, v_fin[keep] < 0])
+    del ev_w, v_before, v_after, e, first, lead, seg_b, last, lb_iv, lb_t
+    del v_fin, keep, fin, pl, r_iv, r_t, r_vb, v0, hi, plain
+
+    # --- intervals longer than the window in window-size chunks, after
+    # the rest
+    long = (r_we - r_wb) > window_size
+    if bool(long.any()):
+        kp = torch.nonzero(~long).squeeze(1)
+        ln = torch.nonzero(long).squeeze(1)
+        n_ch = (r_we[ln] - r_wb[ln] + window_size - 1) // window_size
+        tot = int(n_ch.sum())
+        rep = torch.repeat_interleave(ln, n_ch, output_size=tot)
+        local = torch.arange(tot, device=dev) - torch.repeat_interleave(
+            torch.cumsum(n_ch, 0) - n_ch, n_ch, output_size=tot)
+        cb = r_wb[rep] + local * window_size
+        ce = torch.minimum(cb + window_size, r_we[rep])
+        src = torch.cat([src[kp], src[rep]])
+        neg = torch.cat([neg[kp], neg[rep]])
+        r_wb = torch.cat([r_wb[kp], cb])
+        r_we = torch.cat([r_we[kp], ce])
+        del kp, ln, n_ch, rep, local, cb, ce
+    del long
+
+    # --- rows in stable (contig, wb, we) order: offset + wb < 2^30 and
+    # we <= n <= 2^30
+    r_c = iv_c[src]
+    o = torch.sort(((off_c[r_c] + r_wb) << 31) | r_we, stable=True)[1]
+    src, r_wb, r_we, neg, r_c = src[o], r_wb[o], r_we[o], neg[o], r_c[o]
+
+    # --- u64 values of the surviving ranks (iv_rank is sorted; rows
+    # keep a subset of them); postings contig-major in (rank, W) order
+    uniq = torch.unique_consecutive(iv_rank)
+    slot = torch.searchsorted(uniq, iv_rank[src])
+    po = torch.sort(iv_c, stable=True)[1]
+    return (faults, torch.cat([_count(iv_c, C), _count(r_c, C)]),
+            lut[uniq], lut[iv_rank[po]], iv_wb[po].int(), iv_we[po].int(),
+            slot.int(), r_wb.int(), r_we.int(),
+            torch.where(neg, -1, 1).to(torch.int8))
+
+
+def split_group(arrays, seq_ids):
+    """What ``_resolve_group_hashes`` returns, from ``classify_group``'s
+    arrays on the host: ([(seq_id, (postings u64, wb, we), (row slots,
+    wb, we, strand))] for the group's contigs ``seq_ids``, the group's
+    sorted surviving u64 values)."""
+    faults, counts, vals, ph, pb, pe, slot, r_wb, r_we, strand = arrays
+    f = int(faults)
+    if f:
+        raise AssertionError("; ".join(
+            m for k, m in enumerate(_CLASSIFY_FAULTS) if f >> k & 1))
+    C = len(seq_ids)
+    p_at = np.concatenate(([0], np.cumsum(counts[:C])))
+    r_at = np.concatenate(([0], np.cumsum(counts[C:])))
+    ph = ph.view(np.uint64)
+    out = []
+    for k, seq_id in enumerate(seq_ids):
+        p = slice(p_at[k], p_at[k + 1])
+        r = slice(r_at[k], r_at[k + 1])
+        out.append((seq_id, (ph[p], pb[p], pe[p]),
+                    (slot[r], r_wb[r], r_we[r], strand[r])))
+    return out, vals.view(np.uint64)
 
 
 def _pad_to(x: torch.Tensor, n: int, fill) -> torch.Tensor:
@@ -813,17 +1059,17 @@ def _contig_events(rv, sv, th, n: int, n_w: int, s: int, span: int):
 
 
 def _build_group(group: List[Tuple[int, str]], kmer_size: int,
-                 window_size: int, sketch_size: int, threads: int, device):
+                 window_size: int, sketch_size: int, device):
     """Index-build pipeline for one contig group.
 
     Device, here: hashing -> LOCAL rank reduction -> theta -> membership
-    events, then one device->host copy of the sparse events and the
-    group LUT's u64 values at their distinct begin ranks (``lut_pair``).
-    Host, in the returned closure: pairing, strand classification,
-    rank -> u64 resolution. The closure touches no device (build_index
-    runs it on its worker thread while the next group's device phases
-    run) and returns (per-contig rows in ascending seq_id, the group's
-    u64 values).
+    events (their counts alone come to the host) -> pairing, strand
+    classification, chunking, row sort and rank -> u64 resolution
+    (``classify_group``), then one device->host copy of the group's
+    final arrays, started here. The returned closure waits for that copy
+    and splits it by contig (build_index runs it on its worker thread
+    while the next group's device phases run); it returns (per-contig
+    rows in ascending seq_id, the group's u64 values).
     """
     span = window_size - kmer_size + 1
     mark = _group_clock(group)
@@ -861,80 +1107,45 @@ def _build_group(group: List[Tuple[int, str]], kmer_size: int,
             rv, sv, th, a0, base, n_local, n, n - span + 1, span, *caps)
 
     bufs = [run(*c) for c in calls]
-    # the one device->host copy of the build's sparse results
-    host = (torch.cat(bufs).cpu().numpy() if bufs
-            else np.empty(0, np.int32))
-
-    lanes_by_contig = {}
-    off = 0
-    for (i, args, caps), b in zip(calls, bufs):
-        size = b.shape[0]
-        got = events_mod.unpack_events(host[off:off + size], *caps)
-        off += size
-        while got is None:
+    # the chunks' counts alone come to the host: they size the live lanes
+    heads = (torch.stack([b[-4:] for b in bufs]).cpu().numpy() if bufs
+             else np.empty((0, 4), np.int32))
+    chunks = []                    # (contig index, live lanes)
+    for k, (i, args, caps) in enumerate(calls):
+        b, head = bufs[k], heads[k]
+        while not events_mod.counts_fit(head, *caps):
             # cap overflow (a heavily repetitive contig): rerun on the
             # device with doubled caps; the output is the same
             caps = (2 * caps[0], 2 * caps[1])
             logger.info("contig %d overflowed the event caps; rerun "
                         "with caps %s", spans[i][0], caps)
-            got = events_mod.unpack_events(
-                run(i, args, caps).cpu().numpy(), *caps)
-        lanes_by_contig.setdefault(i, []).append(got)
+            b = run(i, args, caps)
+            head = b[-4:].cpu().numpy()
+        chunks.append((i, events_mod.live_lanes(b, head, *caps)))
+    n_classified = len({i for i, _ in chunks})
+    # nothing but the LUT and the live lanes outlives the events
+    del st, ranks, rank_views, thetas, calls, bufs
     mark("events+fetch")
 
-    # the LUT's u64 values at every DISTINCT begin rank: every rank that
-    # survives into postings or interval rows is a begin's
-    # (_pair_begin_end keeps begin hashes, strand_classify subsets them)
-    bh = [got[0] for chunks in lanes_by_contig.values() for got in chunks]
-    flat_ev = np.concatenate(bh) if bh else np.empty(0, np.int32)
-    if len(flat_ev):
-        seen_ev = np.zeros(int(flat_ev.max()) + 1, bool)
-        seen_ev[flat_ev] = True
-        uniq_ev = np.flatnonzero(seen_ev)
-        ix = torch.from_numpy(uniq_ev).to(lut.device)
-        lut_pair = (uniq_ev, lut[ix].cpu().numpy().view(np.uint64))
-    else:
-        lut_pair = (np.empty(0, np.int64), np.empty(0, np.uint64))
-    mark("lut-prefetch")
+    with trace.span("build classify"):
+        lanes = gather_lanes(chunks, device)
+        del chunks
+        fetch = HostCopy(classify_group(
+            lanes, [n for _, _, n in spans], span, window_size, lut))
+        del lanes, lut
+    mark("classify", keep=False)
+    trace.add("build classify contigs", 0.0, n_classified)
+    seq_ids = [seq_id for seq_id, _, _ in spans]
 
-    def one_contig(i):
-        seq_id, _, n = spans[i]
-        n_w = n - span + 1
-        bh, bW, eh, eW, mrk, mpos = (
-            np.concatenate(x) for x in zip(*lanes_by_contig[i]))
-        iv_rank, iv_wb, iv_we, _ = _pair_begin_end(
-            bh, bW.astype(np.int64), eh, eW.astype(np.int64), n)
-        mh, mb, me, ms = strand_classify(
-            iv_rank, iv_wb, iv_we, mpos.astype(np.int64), mrk >> 1,
-            ((mrk & 1) * 2 - 1).astype(np.int64), n_w, span, n, np.int32)
-        mh, mb, me, ms = _chunk_long_intervals(mh, mb, me, ms, window_size)
-        return seq_id, (iv_rank, iv_wb, iv_we), _sort_rows(mh, mb, me, ms)
+    def fetch_and_split():
+        m = _group_clock(group)
+        host = fetch.wait()
+        m("host-classify")
+        out = split_group(host, seq_ids)
+        m("resolve-u64")
+        return out
 
-    def classify_and_resolve():
-        return _classify_and_resolve(
-            group, one_contig, sorted(lanes_by_contig), threads, None,
-            lut_pair)
-
-    return classify_and_resolve
-
-
-def _classify_and_resolve(group, one_contig, order, threads, uniq_host,
-                          lut_pair):
-    """The host part of a group's build: ``one_contig`` over the
-    contigs ``order`` (on ``threads`` threads), then the u64
-    resolution; the group's phase times are logged."""
-    mark = _group_clock(group)
-    if threads > 1 and len(order) > 1:
-        from concurrent.futures import ThreadPoolExecutor
-        with ThreadPoolExecutor(max_workers=threads) as ex:
-            results = list(ex.map(one_contig, order))
-    else:
-        results = [one_contig(i) for i in order]
-    results.sort(key=lambda t: t[0])
-    mark("host-classify")
-    out = _resolve_group_hashes(results, uniq_host, lut_pair)
-    mark("resolve-u64")
-    return out
+    return fetch_and_split
 
 
 def _group_clock(group):
@@ -952,8 +1163,7 @@ def _group_clock(group):
 
 
 def _build_group_host(group: List[Tuple[int, str]], kmer_size: int,
-                      window_size: int, sketch_size: int, threads: int,
-                      device):
+                      window_size: int, sketch_size: int, device):
     """Index-build pipeline for a group whose contig is over the rank
     limit (the JAX build's host route, ``_build_group`` with its hashes
     streamed to the host).
@@ -964,7 +1174,7 @@ def _build_group_host(group: List[Tuple[int, str]], kmer_size: int,
     events (``contig_minmer_intervals``) in place of the events kernel,
     whose packing needs ranks below 2^30. Returns what ``_build_group``
     returns: a closure that runs the membership events and what follows
-    them. ``threads`` is unused: the group holds one contig.
+    them.
     """
     span = window_size - kmer_size + 1
     mark = _group_clock(group)
@@ -996,9 +1206,12 @@ def _build_group_host(group: List[Tuple[int, str]], kmer_size: int,
         return group[i][0], (ph, pb, pe), _sort_rows(mh, mb, me, ms)
 
     def classify_and_resolve():
-        return _classify_and_resolve(
-            group, one_contig,
-            [i for i, t in enumerate(thetas) if t is not None], 1, uniq,
-            None)
+        m = _group_clock(group)
+        results = [one_contig(i) for i, t in enumerate(thetas)
+                   if t is not None]
+        m("host-classify")
+        out = _resolve_group_hashes(results, uniq)
+        m("resolve-u64")
+        return out
 
     return classify_and_resolve

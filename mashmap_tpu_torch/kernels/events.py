@@ -10,8 +10,9 @@ sparse result. Semantics follow the reference's sequential sweep
   * one k-mer enters / one leaves per window step => O(1) events per
     window: entering-hash gains, theta-rise gains, and their symmetric
     losses — all elementwise over the position/window axes;
-  * begins and ends come back unpaired; the host pairs them per hash in
-    (hash, W) order (``index/builder.py::_pair_begin_end``).
+  * begins and ends come back unpaired; the build pairs them per hash in
+    (hash, W) order on the device (``index/builder.py::classify_group``;
+    the host route's ``_pair_begin_end``).
 """
 
 from __future__ import annotations
@@ -181,15 +182,18 @@ def events_chunk(ranks, strand, theta, a0: int, base: int, n_local: int,
                       torch.stack([n_beg, n_end, n_mem, overflow]).to(i32)])
 
 
-def unpack_events(buf: np.ndarray, beg_cap: int, mem_cap: int):
-    """Host view splitter for events_chunk's packed buffer.
+def counts_fit(head, beg_cap: int, mem_cap: int) -> bool:
+    """Whether a chunk's four counts (n_beg, n_end, n_mem, overflow:
+    the tail of events_chunk's buffer) fit its caps."""
+    n_bg, n_en, n_mem, ovf = (int(x) for x in head)
+    return not ovf and max(n_bg, n_en) <= beg_cap and n_mem <= mem_cap
 
-    Returns None on overflow, else the live lanes
-    (beg_h, beg_W, end_h, end_W, mem_rankstrand, mem_pos).
-    """
-    n_bg, n_en, n_mem, ovf = (int(x) for x in buf[-4:])
-    if ovf or max(n_bg, n_en) > beg_cap or n_mem > mem_cap:
-        return None
+
+def live_lanes(buf, head, beg_cap: int, mem_cap: int):
+    """The live lanes (beg_h, beg_W, end_h, end_W, mem_rankstrand,
+    mem_pos) of events_chunk's buffer, as slices of it (a host array or
+    the device tensor), given the counts ``head`` that fit the caps."""
+    n_bg, n_en, n_mem = (int(x) for x in head[:3])
     c1, c2 = beg_cap, mem_cap
     return (buf[0:n_bg], buf[c1:c1 + n_bg],
             buf[2 * c1:2 * c1 + n_en], buf[3 * c1:3 * c1 + n_en],

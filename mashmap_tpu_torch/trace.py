@@ -120,14 +120,15 @@ def span(name: str):
 def clock(prefix: str, sink, batch=None):
     """mark(label): the seconds since the previous mark (or since this
     call) go to ``sink(label, seconds)``; while recording, the interval
-    is kept as a span ``prefix + label`` of ``batch``."""
+    is kept as a span ``prefix + label`` of ``batch``, unless the mark
+    says ``keep=False`` (the phase is a ``span`` of its own already)."""
     t = [time.perf_counter_ns()]
 
-    def mark(label):
+    def mark(label, keep=True):
         now = time.perf_counter_ns()
         sink(label, (now - t[0]) / 1e9)
         rec = _rec
-        if rec is not None:
+        if keep and rec is not None:
             rec.keep(prefix + label, t[0], now, batch)
         t[0] = now
     return mark

@@ -52,10 +52,17 @@ def _both(rv, sv, th, a0, base, n_local, n, n_w, s_b, caps):
     return j, t
 
 
+def _lanes(buf, caps):
+    """The live lanes of events_chunk's buffer, None on overflow."""
+    head = buf[-4:]
+    return (te.live_lanes(buf, head, *caps) if te.counts_fit(head, *caps)
+            else None)
+
+
 def _assert_same(j, t, caps):
     assert len(j) == len(t) == 4 * caps[0] + 2 * caps[1] + 4
     np.testing.assert_array_equal(j[-4:], t[-4:])
-    lj, lt = te.unpack_events(j, *caps), te.unpack_events(t, *caps)
+    lj, lt = _lanes(j, caps), _lanes(t, caps)
     assert (lj is None) == (lt is None)
     if lj is not None:
         for a, b in zip(lj, lt):
@@ -99,7 +106,7 @@ def test_overflow_flag():
     caps = (8, 8)   # absurdly small: must flag overflow, not corrupt
     j, t = _both(rv, sv, th, 0, 0, n, n, len(theta), s_b, caps)
     assert t[-1] == 1 and j[-1] == 1
-    assert te.unpack_events(t, *caps) is None
+    assert _lanes(t, caps) is None
     _assert_same(j, t, caps)
 
 
@@ -117,7 +124,7 @@ def test_chunk_nonpow2_cap_exceeds_length():
     rv, sv, th = _chunk_inputs(ranks, strand, theta, 0, CHP)
     j, t = _both(rv, sv, th, 0, 0, CHP, n, n_w, s_b, caps)
     _assert_same(j, t, caps)
-    bh, bW, eh, eW, m_rk, m_pos = te.unpack_events(t, *caps)
+    bh, bW, eh, eW, m_rk, m_pos = _lanes(t, caps)
     iv_hash, iv_wb, iv_we, _ = jb._pair_begin_end(
         bh, bW.astype(np.int64), eh, eW.astype(np.int64), n)
     sh, sb_, se, ss = jb.strand_classify(

@@ -227,9 +227,10 @@ def _contigs_around_an_over_limit_one():
 def test_overlapped_build_equals_jax(monkeypatch, caplog):
     """Four device groups and one over-limit contig between them: the
     index equals the JAX package's at the same limit; every group's host
-    part ran on the build's one worker thread, in group order, and each
-    group logs and records its phases (device ones on the main
-    thread)."""
+    part (the host route's resolution, a device group's split of its
+    classified arrays) ran on the build's one worker thread, in group
+    order, and each group logs and records its phases (device ones, the
+    device classify included, on the main thread)."""
     contigs = _contigs_around_an_over_limit_one()
     limit = 20_000
     built, hosted = [], []
@@ -240,13 +241,18 @@ def test_overlapped_build_equals_jax(monkeypatch, caplog):
             built.append(group[0][0])
             return _real(group, *args)
         monkeypatch.setattr(tb, name, spy)
-    real_rh = tb._resolve_group_hashes
+    real_rh, real_split = tb._resolve_group_hashes, tb.split_group
 
     def resolve_spy(results, *args):
         hosted.append(([r[0] for r in results],
                        threading.current_thread().name))
         return real_rh(results, *args)
+
+    def split_spy(arrays, seq_ids):
+        hosted.append((list(seq_ids), threading.current_thread().name))
+        return real_split(arrays, seq_ids)
     monkeypatch.setattr(tb, "_resolve_group_hashes", resolve_spy)
+    monkeypatch.setattr(tb, "split_group", split_spy)
     with caplog.at_level(logging.DEBUG, "mashmap_tpu_torch.index"):
         got = tb.build_index(contigs, 15, 2_000, 60, rank_limit=limit,
                              device="cpu")
@@ -268,7 +274,7 @@ def test_overlapped_build_equals_jax(monkeypatch, caplog):
             phases.setdefault(int(gid), []).append(
                 (label, r.threadName == main))
     dev = [("hash-dispatch", True), ("rank+theta", True),
-           ("events+fetch", True), ("lut-prefetch", True),
+           ("events+fetch", True), ("classify", True),
            ("host-classify", False), ("resolve-u64", False)]
     host = [("hash-dispatch", True), ("rank+theta", True),
             ("host-classify", False), ("resolve-u64", False)]
@@ -284,12 +290,13 @@ def test_overlapped_build_equals_jax(monkeypatch, caplog):
 
 
 def test_worker_exception_propagates(monkeypatch):
-    """strand_classify failing on the worker for the second group
-    raises out of build_index; nothing falls back to a serial path."""
+    """The split of a device group's classified arrays (split_group)
+    failing on the worker for the second group raises out of
+    build_index; nothing falls back to a serial path."""
     contigs = [(f"c{i}", random_genome(9_000, seed=60 + i))
                for i in range(3)]
     calls = []
-    real = tb.strand_classify
+    real = tb.split_group
 
     class Boom(RuntimeError):
         pass
@@ -299,7 +306,7 @@ def test_worker_exception_propagates(monkeypatch):
         if len(calls) == 2:
             raise Boom("group 2")
         return real(*args)
-    monkeypatch.setattr(tb, "strand_classify", fail_second)
+    monkeypatch.setattr(tb, "split_group", fail_second)
     with pytest.raises(Boom, match="group 2"):
         tb.build_index(contigs, 15, 2_000, 60, rank_limit=10_000,
                        device="cpu")

@@ -36,7 +36,7 @@ SPANS = {"build read", "build worker-wait", "build tail-concat",
 MAP_PHASES = {"l1-tables", "l1-dispatch", "l1-wait", "l1-fetch",
               "l2-dispatch", "l2-wait", "l2-fetch", "post"}
 GROUP_PHASES = ["hash-dispatch", "rank+theta", "events+fetch",
-                "lut-prefetch", "host-classify", "resolve-u64"]
+                "classify", "host-classify", "resolve-u64"]
 
 
 def _params(fa, out):
@@ -84,6 +84,7 @@ def test_spans_nest_with_parent_thread_job_and_batch():
                 pass
             mark("one")
             mark("two")
+            mark("three", keep=False)       # a span of its own
         t = threading.Thread(target=trace.add, args=("other", 0.5))
         t.start()
         t.join(timeout=10)
@@ -120,7 +121,7 @@ def test_spans_nest_with_parent_thread_job_and_batch():
     assert all(s[5] == ordinal for n, (_, s) in by.items() if n != "side")
     assert all(before <= s[3] <= s[4] <= after for s in sp)
     assert [s[3] for s in sp] == sorted(s[3] for s in sp)
-    assert set(phases) == {"one", "two"}
+    assert set(phases) == {"one", "two", "three"}
     assert rec.totals["other"] == (0.5, 1)
     assert trace.JOBS[-1][1]["outer"][1] == 1
     assert "c one" not in rec.totals        # clock phases go to their sink
@@ -133,6 +134,11 @@ def test_job_records_every_span_of_the_program(job):
     assert SPANS <= names, SPANS - names
     assert {f"map {p}" for p in MAP_PHASES} <= names
     assert {f"build {p}" for p in GROUP_PHASES} <= names
+    # the device classify: one span a group (the one group of three
+    # contigs), kept once though it is a phase of the group's clock too
+    assert [s[0] for s in sp].count("build classify") == 1
+    assert rec.totals["build classify"][1] == 1
+    assert rec.totals["build classify contigs"] == (0.0, 3)
     assert rec.totals["post-l2"][1] > 0
     assert all(s[5] == ordinal for s in sp)
     # children where the program puts them
